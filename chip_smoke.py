@@ -2,19 +2,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``staticmapping_torch/csrc``, holds each
-kernel against its plain PyTorch version, times it, then drives the main
-path — the pipelined type-6 ``MapBuilder`` at the JAX package's default
-widths on a synthetic sequence — and checks its trajectory against the
-ground truth.  Every phase prints one JSON line; the line before the last
-lists the kernels, and the last line is ``{"ok": true, "device": ...}``.
-Any failure raises and exits non-zero.  Without a CUDA device it exits
-non-zero before printing anything.
+Builds the port's native libraries from ``staticmapping_torch/csrc`` (one
+compiler per source, all started together), then, one phase after another:
+- ``nn_sweep`` / ``nn_kernel_vs_plain``: the 1-NN kernel (K1, K2) against an
+  exact host check and its plain PyTorch version, timed;
+- ``main_path``: the pipelined type-6 ``MapBuilder`` at the JAX package's
+  default widths on a synthetic sequence, checked against the ground truth;
+- ``nn_variants``: the variant kernels (K3, K4 in both modes) against their
+  plain versions and the near-tie contract, timed, then the port's variant
+  bench (``python -m staticmapping_torch.ops.nn_variants``) run once;
+- ``cli``: ``python -m staticmapping_torch --cfg config/lidar_only_kitti.xml
+  --kitti DIR --no-backend`` on .bin files of the same world at full width:
+  the sequential front end and the MRVM static map, checked against the
+  ground truth;
+- ``mrvm_vs_plain``: the MRVM's per-scan device reduction on one full-width
+  submap of that run, on the GPU against the CPU.
+Each path's launch counts are set to 0 just before it and read just after.
+Every phase prints one JSON line; the line before the last lists the
+kernels, and the last line is ``{"ok": true, "device": ...}``.  Any failure
+raises and exits non-zero.  Without a CUDA device it exits non-zero before
+printing anything.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -22,7 +35,8 @@ import time
 import numpy as np
 import torch
 
-from scripts.main_path import MAIN_PATH, stamp_matched_ate
+from scripts.main_path import (CLI_PATH, MAIN_PATH, cli_sequence,
+                               stamp_matched_ate, write_kitti_bins)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda")
@@ -31,6 +45,11 @@ DEV = torch.device("cuda")
 # scripts/jax_main_path_ate.py (160 keyframes, 80 submaps); the port must
 # stay within max(2 x this, 0.35 m), the bound of tests/test_pipeline.py.
 JAX_ATE_M = 0.6906912932542186
+# ATE and static-map voxel count of staticmapping_tpu's CLI on CLI_PATH,
+# measured on a CPU by scripts/jax_cli_ate.py (42 keyframes, 21 submaps);
+# the port's CLI must stay within max(2 x this ATE, 0.35 m)
+JAX_CLI_ATE_M = 0.08342290625237175
+JAX_CLI_STATIC_VOXELS = 56286
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -59,6 +78,23 @@ SWEEP_SHAPES = [("512x4096", 1, 512, 4096, 96), ("128x128", 1, 128, 128, 0),
                 ("32768x65536", 1, 32768, 65536, 0),
                 ("B2_2048x4096", 2, 2048, 4096, None),
                 ("B2_65536x65536", 2, 65536, 65536, None)]
+
+
+VARIANT_SOURCE = "staticmapping_torch/csrc/nn_variants.cu"
+VARIANT_KERNELS = {
+    "packed": {"name": "nn_variants expanded, packed key (K3)",
+               "replaces": "tools/bench_nn_variants.py:48 "
+                           "(_nn_kernel_packed, via nearest_packed :85)"},
+    "aug_packed": {"name": "nn_variants augmented, packed key (K4)",
+                   "replaces": "tools/bench_nn_variants.py:118 "
+                               "(_nn_kernel_aug packed=True, via "
+                               "nearest_aug :170)"},
+    "aug": {"name": "nn_variants augmented, two reductions (K4)",
+            "replaces": "tools/bench_nn_variants.py:118 "
+                        "(_nn_kernel_aug packed=False, via nearest_aug :170)"},
+}
+# queries x targets of the variant bench (bench_nn_variants.py:186)
+VARIANT_SHAPE = (16384, 2048)
 
 
 def emit(obj) -> None:
@@ -292,13 +328,219 @@ def main_path(nn_search) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the NN variants (K3, K4)
+# ---------------------------------------------------------------------------
+
+def variant_kernels(nn_search, nn_variants) -> dict:
+    """Each variant kernel against its plain version on the same card and
+    inputs at the bench's shape, the near-tie contract (``check_one``), then
+    timed beside the plain version, ``torch.cdist`` + min (a yardstick the
+    port never calls), the K1 kernel at the same shape, and the bound."""
+    m, n = VARIANT_SHAPE
+    rng = np.random.default_rng(2)
+    q = rng.uniform(-30, 30, (m, 3)).astype(np.float32)
+    t = rng.uniform(-30, 30, (n, 3)).astype(np.float32)
+    qd, td = torch.from_numpy(q).to(DEV), torch.from_numpy(t).to(DEV)
+    operands = {"packed": (nn_variants.pad8(qd), nn_variants.pad8(td)),
+                "aug_packed": (nn_variants.aug_q(qd), nn_variants.aug_t(td)),
+                "aug": (nn_variants.aug_q(qd), nn_variants.aug_t(td))}
+    pairs = m * n
+    flop_s = pairs * NN_FLOPS_PER_PAIR / PEAK_FP32_FLOPS
+    # each [8, ·] operand column read once (32 B), d and idx written (8 B)
+    byte_s = (32 * (m + n) + 8 * m) / PEAK_BYTES_PER_S
+    library_ms = time_ms(lambda: torch.cdist(qd, td).min(-1), 20)
+    k1_ms = time_ms(lambda: nn_search._nearest_cuda(qd, td), 50)
+    out = {}
+    for variant, (a, b) in operands.items():
+        bits = nn_variants.AUG_IDX_BITS      # the bench's K3 uses 11 too
+        kernel = lambda a=a, b=b, v=variant, bits=bits: nn_variants._cuda(
+            v, a, b, bits, nn_variants.BLOCKS[0])
+        plain = lambda a=a, b=b, v=variant, bits=bits: nn_variants._plain(
+            v, a, b, bits)
+        d_k, i_k = kernel()
+        d_p, i_p = plain()
+        torch.cuda.synchronize()
+        agree = float((i_k == i_p).float().mean())
+        max_abs_err = float((d_k - d_p).abs().max())
+        contract = check_one(q, t, np.ones(n, dtype=bool),
+                             d_k.cpu().numpy(), i_k.cpu().numpy())
+        res = {"shape": [m, n], "idx_agree": agree,
+               "max_abs_err": max_abs_err, "contract": contract,
+               "ms": time_ms(kernel, 50), "plain_ms": time_ms(plain, 5),
+               "library_ms": library_ms, "k1_ms": k1_ms,
+               "bound_ms": 1e3 * max(flop_s, byte_s),
+               "bound_by": "operations" if flop_s >= byte_s else "bytes"}
+        emit({"phase": "nn_variant_vs_plain", "variant": variant, **res})
+        # the two f32 orders round d² differently (and the packed key then
+        # truncates): hold idx to the near-tie share and d² to the
+        # expansion's f32 error at 30 m coordinates, as for K1
+        if agree < 0.999 or max_abs_err > 5e-2 or not contract["ok"]:
+            raise AssertionError(f"{variant}: kernel vs plain idx agree "
+                                 f"{agree}, max |d2 err| {max_abs_err}, "
+                                 f"contract {contract}")
+        out[variant] = res
+    return out
+
+
+def variant_bench(nn_variants) -> dict:
+    """The port's variant bench, run once; its launches are the variant
+    kernels' path."""
+    nn_variants.reset_launches()
+    t0 = time.perf_counter()
+    bench = nn_variants.main()
+    torch.cuda.synchronize()
+    launches = dict(nn_variants.launches)
+    res = {"phase": "nn_variant_bench", "seconds": time.perf_counter() - t0,
+           "launches": launches, **bench}
+    emit(res)
+    for variant, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"the variant bench never launched the "
+                                 f"{variant} kernel")
+    for name, a in bench["agreement"].items():
+        if a["idx_agree"] < 0.999:
+            raise AssertionError(f"{name} agrees with K1 on only "
+                                 f"{a['idx_agree']} of the queries")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the CLI path and the MRVM
+# ---------------------------------------------------------------------------
+
+def cli_path(nn_search):
+    """``python -m staticmapping_torch`` on the GPU through its entry point,
+    on .bin files of MAIN_PATH's world; returns the finished builder and the
+    phase's numbers."""
+    from staticmapping_torch import __main__ as cli
+    from staticmapping_torch.common import prof
+    from staticmapping_torch.io import kitti, pcd, synthetic
+    from staticmapping_torch.registration import icp_fast
+
+    scans, gt = cli_sequence(synthetic.make_sequence)
+    work = os.path.join(ROOT, "chiprun_out", "chip_smoke_cli")
+    velodyne, out = os.path.join(work, "velodyne"), os.path.join(work, "out")
+    shutil.rmtree(work, ignore_errors=True)
+    write_kitti_bins(velodyne, scans)
+    args = cli.make_parser().parse_args(
+        ["--cfg", os.path.join(ROOT, CLI_PATH["cfg"]), "--kitti", velodyne,
+         "--out", out, "--no-backend", "--rate", str(CLI_PATH["rate"]),
+         "--device", "cuda", "--quiet"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nn_search.reset_launches()
+    icp_fast.reset_trips()
+    prof.reset()
+    prof.enable(report_at_exit=False)
+    t0 = time.perf_counter()
+    mb = cli.run(args)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    prof.disable()
+    launches = dict(nn_search.launches)
+    stages = prof.stats()
+    shutil.rmtree(velodyne)
+
+    frames = [(f.stamp, f.global_pose) for s in mb.trajectory
+              for f in s.frames]
+    ate = stamp_matched_ate(frames, gt, 1.0 / CLI_PATH["rate"],
+                            kitti.ate_rmse)
+    poses = kitti.read_poses(os.path.join(out, "kitti_pose.txt"))
+    static = pcd.read_pcd(os.path.join(out, "static_map.pcd"))
+    finish_s = stages["Finish"]["sum"]
+    bound = max(2.0 * JAX_CLI_ATE_M, 0.35)
+    res = {
+        "phase": "cli", "n_scans": len(scans),
+        "scans_per_s": len(scans) / (total - finish_s),
+        "total_s": total, "finish_s": finish_s,
+        "save_maps_s": stages["SaveMaps"]["sum"],
+        "keyframes": len(frames), "submaps": len(mb.trajectory),
+        "static_voxels": len(static),
+        "jax_static_voxels": JAX_CLI_STATIC_VOXELS,
+        "ate_m": ate, "ate_bound_m": bound, "jax_ate_m": JAX_CLI_ATE_M,
+        "launches": launches, "icp_trips": icp_fast.trip_counts(),
+        "stages_ms": {k: {"count": v["count"], "sum_ms": 1e3 * v["sum"],
+                          "avg_ms": 1e3 * v["avg"]}
+                      for k, v in stages.items()},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(res)
+    if launches["single"] <= 0:
+        raise AssertionError("the CLI path never launched the single-pair "
+                             "nn kernel")
+    if len(poses) != len(mb.trajectory) or not np.isfinite(poses).all():
+        raise AssertionError("kitti_pose.txt does not hold finite submap "
+                             "poses")
+    if len(static) == 0 or not np.isfinite(static).all():
+        raise AssertionError("static_map.pcd is empty or not finite")
+    if not ate <= bound:
+        raise AssertionError(f"CLI ATE {ate} m exceeds {bound} m")
+    return mb, res
+
+
+def _voxel_counts(out):
+    """``(packed int64 keys, hits, misses)`` of ``_scan_events``' valid
+    voxels."""
+    keys, hit, miss, _, _, _, valid = (x.cpu().numpy() for x in out)
+    k = keys[valid].astype(np.int64) + (1 << 20)
+    return ((k[:, 0] << 42) | (k[:, 1] << 21) | k[:, 2], hit[valid],
+            miss[valid])
+
+
+def mrvm_vs_plain(mb) -> dict:
+    """``_scan_events`` of one full-width submap of the CLI run (its cloud at
+    its global pose, from its origin) on the GPU and on the CPU: the same
+    valid voxels with the same hit and miss counts for ≥ 99.9% of the
+    voxels (a ray sample on a floor boundary may round to the neighbouring
+    voxel in one of the two)."""
+    from staticmapping_torch.builder import mrvm
+
+    merged = [s for s in mb.trajectory if s.cloud is not None]
+    s = merged[len(merged) // 2]
+    settings = mb.options.mrvm_settings
+    cloud = s.cloud.transform(torch.as_tensor(
+        s.global_pose.astype(np.float32), device=DEV))
+    origin = s.global_pose[:3, 3].astype(np.float32).copy()
+    origin[2] += settings.z_offset
+    args = (settings.high_resolution, settings.max_ray_steps)
+
+    def run(device):
+        return mrvm._scan_events(
+            cloud.xyz.to(device), cloud.mask.to(device),
+            cloud.intensity.to(device),
+            torch.as_tensor(origin, device=device), *args)
+
+    torch.cuda.reset_peak_memory_stats()
+    gpu = _voxel_counts(run(DEV))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = time_ms(lambda: run(DEV), 5)
+    t0 = time.perf_counter()
+    cpu = _voxel_counts(run("cpu"))
+    cpu_s = time.perf_counter() - t0
+    common, ig, ic = np.intersect1d(gpu[0], cpu[0], return_indices=True)
+    union = len(gpu[0]) + len(cpu[0]) - len(common)
+    agree = int(np.sum((gpu[1][ig] == cpu[1][ic])
+                       & (gpu[2][ig] == cpu[2][ic])))
+    res = {"phase": "mrvm_vs_plain", "submap": s.id,
+           "points": int(cloud.num_valid()), "capacity": cloud.capacity,
+           "events": cloud.capacity * (1 + settings.max_ray_steps),
+           "voxels_gpu": len(gpu[0]), "voxels_cpu": len(cpu[0]),
+           "agree": agree / max(union, 1), "gpu_ms": ms,
+           "cpu_s": cpu_s, "peak_mem_gib": peak}
+    emit(res)
+    if res["agree"] < 0.999:
+        raise AssertionError(f"MRVM events agree on {res['agree']} only")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
               file=sys.stderr)
         return 2
     from staticmapping_torch import cuda_build
-    from staticmapping_torch.ops import nn_search
+    from staticmapping_torch.ops import nn_search, nn_variants
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -311,24 +553,33 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     t0 = time.perf_counter()
-    cuda_build.build("nn_search")
+    sources = ("nn_search", "nn_variants", "mrvm_store")
+    cuda_build.build(*sources)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": [ln for ln in cuda_build.build_info["nn_search"]["log"]
-                    .splitlines() if "Used" in ln or "spill" in ln]})
+          "ptxas": {name: [ln for ln in cuda_build.build_info[name]["log"]
+                           .splitlines() if "Used" in ln or "spill" in ln]
+                    for name in sources}})
 
     sweep(nn_search)
     timing = kernel_vs_plain(nn_search)
     res = main_path(nn_search)
+    vtiming = variant_kernels(nn_search, nn_variants)
+    bench = variant_bench(nn_variants)
+    mb, _ = cli_path(nn_search)
+    mrvm_vs_plain(mb)
+
+    def entry(meta, source, launches, t):
+        return {"name": meta["name"], "route": "cuda", "source": source,
+                "replaces": meta["replaces"], "launches": launches,
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
     emit({"kernels": [
-        {"name": meta["name"], "route": "cuda", "source": NN_SOURCE,
-         "replaces": meta["replaces"], "launches": res["launches"][entry],
-         "max_abs_err": timing[entry]["max_abs_err"],
-         "ms": timing[entry]["ms"], "plain_ms": timing[entry]["plain_ms"],
-         "bound_ms": timing[entry]["bound_ms"],
-         "bound_by": timing[entry]["bound_by"],
-         "library_ms": timing[entry]["library_ms"]}
-        for entry, meta in NN_KERNELS.items()]})
+        entry(meta, NN_SOURCE, res["launches"][k], timing[k])
+        for k, meta in NN_KERNELS.items()] + [
+        entry(meta, VARIANT_SOURCE, bench["launches"][k], vtiming[k])
+        for k, meta in VARIANT_KERNELS.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

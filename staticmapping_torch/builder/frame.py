@@ -19,6 +19,7 @@ from ..common import np_se3, se3
 from ..data import cloud as cloud_lib
 from ..data.cloud import PointCloud
 from ..ops import voxel as voxel_ops
+from .mrvm import MrvmSettings, MultiResolutionVoxelMap
 
 
 def _pose_tensor(poses, device) -> torch.Tensor:
@@ -117,10 +118,6 @@ class Submap:
     def __init__(self, submap_id: int, options: SubmapOptions,
                  capacity: int, save_dir: Optional[str] = None,
                  device=None):
-        if options.enable_inner_mrvm:
-            raise NotImplementedError(
-                "enable_inner_mrvm: the MRVM is not ported to "
-                "staticmapping_torch yet (ROADMAP.md queue A item 15)")
         self.id = submap_id
         self.options = options
         self.capacity = capacity
@@ -236,8 +233,11 @@ class Submap:
             self._finalize()
 
     def _finalize(self) -> None:
-        """Merge frames in local coordinates with the optional voxel filter
-        (submap.cc:98-162)."""
+        """Merge frames in local coordinates with the optional inner MRVM
+        and voxel filter (submap.cc:98-162)."""
+        if self.options.enable_inner_mrvm:
+            self._finalize_inner_mrvm()
+            return
         if self.defer_merge:
             return   # the batched flush installs the cloud
         poses = np.stack([f.local_pose for f in self.frames])
@@ -245,6 +245,28 @@ class Submap:
             tuple(f.cloud for f in self.frames), poses,
             capacity=self.capacity, voxel_size=self.options.voxel_size,
             voxel_mode="round" if self.options.enable_voxel_filter else None)
+
+    def _finalize_inner_mrvm(self) -> None:
+        """Dynamic-object removal inside the submap: ray-cast every frame
+        from its own viewpoint into an MRVM and keep the occupied voxels'
+        average points.  The reference builds this map but never outputs it
+        (submap.cc:100-113 ends at a TODO); this follows the JAX package,
+        which completes it."""
+        vm = MultiResolutionVoxelMap(MrvmSettings(output_average=True,
+                                                  prob_threshold=0.5))
+        for f in self.frames:
+            local = f.cloud.transform(_pose_tensor(f.local_pose,
+                                                   f.cloud.device))
+            vm.insert_point_cloud(local, f.local_pose[:3, 3])
+        pts = vm.output_to_numpy()[:self.capacity]
+        merged = cloud_lib.from_numpy(pts[:, :3], pts[:, 3],
+                                      capacity=self.capacity,
+                                      stamp_factors=False,
+                                      device=self.frames[0].cloud.device)
+        if self.options.enable_voxel_filter:
+            merged = voxel_ops.voxel_downsample(
+                merged, self.options.voxel_size, mode="round")
+        self.cloud = merged
 
     def install_merged_cloud(self, pc: PointCloud) -> None:
         """Install the batch-merged cloud (deferred-merge path)."""

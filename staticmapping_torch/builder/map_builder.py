@@ -1,17 +1,17 @@
 """MapBuilder — the orchestrator; the PyTorch counterpart of
-``staticmapping_tpu.builder.map_builder`` for the pipelined path without the
-back end (reference: builder/map_builder.h:122-276).
+``staticmapping_tpu.builder.map_builder`` without the back end (reference:
+builder/map_builder.h:122-276).
 
-It owns the chunked device front end, the submap builder and the
-trajectory.  Keyframes go into submaps; full submaps are merged, given target
-normals and registered onto their predecessors in batches of
-``pair_match_batch`` (the reference's SubmapPairMatch queue,
-map_builder.cc:399-446).  ``finish`` writes ``kitti_pose.txt``, ``path.csv``
-and the direct combined map.
+It owns the front end (the sequential ``FrontEnd`` by default, or the
+chunked ``DeviceFrontEnd`` with ``pipelined=True``), the submap builder and
+the trajectory.  Keyframes go into submaps; full submaps are merged, given
+target normals and registered onto their predecessors, one at a time or in
+batches of ``pair_match_batch`` (the reference's SubmapPairMatch queue,
+map_builder.cc:399-446).  ``finish`` writes ``kitti_pose.txt``,
+``path.csv``, the MRVM static map and the direct combined map.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than skipped:
-the sequential front end (``pipelined=False``), a pose-graph back end, the
-MRVM static map (``output_mrvm``) and the map package (``save_map_package``).
+a pose-graph back end and the map package (``save_map_package``).
 """
 from __future__ import annotations
 
@@ -34,8 +34,11 @@ from ..io import pcd as pcd_io
 from ..registration.icp_fast import align_point_to_plane
 from .frame import (Frame, MemoryManager, Submap, SubmapOptions, Trajectory,
                     _batch_merge_frames)
-from .frontend import FrontEndOptions, _target_normals
+from .frontend import FrontEnd, FrontEndOptions, _target_normals
+from .map_package import MapPackageOptions
+from .mrvm import MrvmSettings, MultiResolutionVoxelMap
 from .pipeline import DeviceFrontEnd
+from .pose_extrapolator import ImuData, PoseExtrapolator
 
 
 def _stride_sample(cloud: PointCloud, stride: int) -> PointCloud:
@@ -84,11 +87,25 @@ class MapBuilderOptions:
     data_collector: DataCollectorOptions = dataclasses.field(
         default_factory=DataCollectorOptions)
     use_imu: bool = False
+    # GPS and odometry inputs feed the pose-graph back end (not ported yet,
+    # ROADMAP.md queue A item 14); config.py fills them
+    use_gps: bool = False
+    use_odom: bool = False
     export_file_path: str = "./"
     output_kitti_pose: bool = True
     output_mrvm: bool = True
     output_direct_combined_map: bool = True
+    # piecewise direct map export: close and restart the combined/MRVM maps
+    # every `separate_step` submaps, writing part_map_<k>.pcd /
+    # static_part_map_<k>.pcd (whole_options, map_builder.h:104-109,
+    # SaveMaps cc:857-891)
+    separate_output: bool = False
+    separate_step: int = 200
     save_map_package: bool = False
+    mrvm_settings: MrvmSettings = dataclasses.field(
+        default_factory=MrvmSettings)
+    map_package: MapPackageOptions = dataclasses.field(
+        default_factory=MapPackageOptions)
     submap_capacity: int = 65536
     # back_end submap matcher (registrators/interface.h:61)
     submap_matcher_accepted_min_score: float = 0.7
@@ -97,7 +114,7 @@ class MapBuilderOptions:
     submap_matcher_source_stride: int = 4
     enable_submap_pair_match: bool = True
     # chunked device front end (builder/pipeline.py), `pipeline_chunk` scans
-    # per chunk; the sequential front end is not ported
+    # per chunk; False = the sequential front end (builder/frontend.py)
     pipelined: bool = False
     pipeline_chunk: int = 16
     # match deferred submap pairs `pair_match_batch` at a time in one
@@ -113,14 +130,8 @@ class MapBuilderOptions:
 def _refuse_unported(options: MapBuilderOptions, backend) -> None:
     """Raise for every option whose code is not ported yet."""
     gates = [
-        (not options.pipelined,
-         "pipelined=False: the sequential front end is ROADMAP.md queue A "
-         "item 7"),
         (backend is not None,
          "a pose-graph back end: ROADMAP.md queue A item 14"),
-        (options.output_mrvm,
-         "output_mrvm=True: the MRVM static map is ROADMAP.md queue A item "
-         "15 (set output_mrvm=False)"),
         (options.save_map_package,
          "save_map_package=True: the map package is ROADMAP.md queue A "
          "item 17"),
@@ -143,12 +154,22 @@ class MapBuilder:
         self.options = options or MapBuilderOptions()
         _refuse_unported(self.options, backend)
         self.device = resolve_device(device)
-        # gyro samples ride with each chunk and drive the rotation
-        # prediction on the device
-        self.options.front_end.use_imu = self.options.use_imu
-        self.front_end = DeviceFrontEnd(
-            self.options.front_end, filter_chain=filter_chain,
-            chunk_size=self.options.pipeline_chunk, device=self.device)
+        if self.options.pipelined:
+            # gyro samples ride with each chunk and drive the rotation
+            # prediction on the device
+            self.options.front_end.use_imu = self.options.use_imu
+            self.front_end = DeviceFrontEnd(
+                self.options.front_end, filter_chain=filter_chain,
+                chunk_size=self.options.pipeline_chunk, device=self.device)
+        else:
+            # use_imu selects the IMU-driven extrapolator mode
+            # (map_builder.cc:68-75: InitialWithImu vs InitialSimpleCTRV)
+            extrapolator = (PoseExtrapolator(mode=PoseExtrapolator.MODE_IMU)
+                            if self.options.use_imu else None)
+            self.front_end = FrontEnd(self.options.front_end,
+                                      filter_chain=filter_chain,
+                                      extrapolator=extrapolator,
+                                      device=self.device)
         self.data_collector = DataCollector(self.options.data_collector)
         self.trajectory = Trajectory(0)
         self._current_submap: Optional[Submap] = None
@@ -166,12 +187,20 @@ class MapBuilder:
         # static extrinsics (SetTrackingTo*, map_builder.h:124-137)
         self.tracking_to_lidar = np.eye(4)
         self.tracking_to_imu = np.eye(4)
+        self.tracking_to_odom = np.eye(4)
+        self.tracking_to_gps = np.eye(4)
 
     def set_tracking_to_lidar(self, T: np.ndarray):
         self.tracking_to_lidar = np.asarray(T, dtype=np.float64)
 
     def set_tracking_to_imu(self, T: np.ndarray):
         self.tracking_to_imu = np.asarray(T, dtype=np.float64)
+
+    def set_tracking_to_odom(self, T: np.ndarray):
+        self.tracking_to_odom = np.asarray(T, dtype=np.float64)
+
+    def set_tracking_to_gps(self, T: np.ndarray):
+        self.tracking_to_gps = np.asarray(T, dtype=np.float64)
 
     # ------------------------------------------------------------------
     def insert_pointcloud(self, stamp: float, points: np.ndarray) -> None:
@@ -188,7 +217,11 @@ class MapBuilder:
         out = self.data_collector.add_cloud(stamp, points)
         if out is None:
             return
-        for frame in self.front_end.process(*out):    # keyframe burst
+        frame = self.front_end.process(*out)
+        if isinstance(frame, list):           # pipelined: keyframe burst
+            for f in frame:
+                self._insert_frame(f)
+        elif frame is not None:
             self._insert_frame(frame)
 
     def insert_imu(self, stamp: float, angular_velocity, linear_acceleration):
@@ -198,7 +231,11 @@ class MapBuilder:
         w = R @ np.asarray(angular_velocity, dtype=np.float64)
         a = R @ np.asarray(linear_acceleration, dtype=np.float64)
         self.data_collector.add_imu(ImuMsg(stamp, w, a))
-        self.front_end.add_imu(stamp, w)
+        if self.options.pipelined:
+            self.front_end.add_imu(stamp, w)
+        else:
+            self.front_end.extrapolator.add_imu_data(ImuData(stamp, w, a))
+
 
     def _insert_frame(self, frame: Frame) -> None:
         """InsertFrameForSubmap + the SubmapProcessing merge step
@@ -214,7 +251,9 @@ class MapBuilder:
                 capacity=opts.submap_capacity, save_dir=self._submap_dir,
                 device=self.device)
             # batched path: the flush merges the frames
-            self._current_submap.defer_merge = opts.pair_match_batch > 1
+            self._current_submap.defer_merge = (
+                opts.pair_match_batch > 1
+                and not opts.submap.enable_inner_mrvm)
             self._next_submap_id += 1
             self.trajectory.append(self._current_submap)
         if self.memory_manager is not None:
@@ -353,10 +392,15 @@ class MapBuilder:
     def finish(self) -> None:
         """FinishAllComputations (map_builder.cc:715-746): flush the front
         end and the pair queue, then write the outputs (SaveMaps
-        cc:825-911).  Stops the front end's stage thread."""
-        for f in self.front_end.flush():
-            self._insert_frame(f)
-        self.front_end.close()
+        cc:825-911).  Stops the chunked front end's stage thread."""
+        with prof.block("Finish"):
+            self._finish()
+
+    def _finish(self) -> None:
+        if self.options.pipelined:
+            for f in self.front_end.flush():
+                self._insert_frame(f)
+            self.front_end.close()
         self._flush_pair_matches(drain=True)
 
         out_dir = self.options.export_file_path
@@ -365,7 +409,7 @@ class MapBuilder:
             kitti_io.write_poses(os.path.join(out_dir, "kitti_pose.txt"),
                                  self.submap_poses())
         self._output_path_files(out_dir)
-        if self.options.output_direct_combined_map:
+        if self.options.output_mrvm or self.options.output_direct_combined_map:
             self._save_maps(out_dir)
 
     def _output_path_files(self, out_dir: str) -> None:
@@ -380,19 +424,77 @@ class MapBuilder:
             np.savetxt(os.path.join(out_dir, "path.csv"), np.asarray(rows),
                        header="stamp x y z qw qx qy qz", comments="# ")
 
-    def _global_cloud(self, s: Submap) -> PointCloud:
-        return s.cloud.transform(torch.as_tensor(
-            s.global_pose.astype(np.float32), device=s.cloud.device))
+    def _write_static(self, path: str, mrvm: MultiResolutionVoxelMap
+                      ) -> None:
+        pts = mrvm.output_to_numpy()
+        if self.options.mrvm_settings.output_rgb:
+            # grayscale rgb from intensity (OutputToPointCloud cc:187-209)
+            pcd_io.write_pcd_rgb(path, pts[:, :3], pts[:, 3])
+        else:
+            pcd_io.write_pcd(path, pts)
 
     def _save_maps(self, out_dir: str) -> None:
-        """The direct combined map of SaveMaps (map_builder.cc:825-911):
-        every submap cloud at its final global pose, into
-        ``whole_map.pcd``."""
-        combined = [cloud_lib.to_numpy(self._global_cloud(s))
-                    for s in self.trajectory if s.cloud is not None]
-        if combined:
-            pcd_io.write_pcd(os.path.join(out_dir, "whole_map.pcd"),
-                             np.vstack(combined))
+        """SaveMaps (map_builder.cc:825-911): every submap cloud at its
+        final global pose, ray-cast into the MRVM for ``static_map.pcd`` and
+        stacked for ``whole_map.pcd``.  With ``separate_output`` both maps
+        are written and restarted every ``separate_step`` submaps
+        (cc:857-891).
+
+        The MRVM runs one deep: the device reduces submap k's ray events
+        while the host merges submap k−1's into the store."""
+        opts = self.options
+        mrvm = (MultiResolutionVoxelMap(opts.mrvm_settings)
+                if opts.output_mrvm else None)
+        combined = []
+        n_submaps = len(self.trajectory)
+        pending = None
+
+        def drain():
+            nonlocal pending
+            if pending is not None:
+                mrvm.consume(pending)
+                pending = None
+
+        with prof.block("SaveMaps"):
+            for s in self.trajectory:
+                if s.cloud is not None:
+                    global_cloud = s.cloud.transform(torch.as_tensor(
+                        s.global_pose.astype(np.float32),
+                        device=s.cloud.device))
+                    if mrvm is not None:
+                        handle = mrvm.dispatch(global_cloud,
+                                               s.global_pose[:3, 3])
+                        drain()
+                        pending = handle
+                    if opts.output_direct_combined_map:
+                        combined.append(cloud_lib.to_numpy(global_cloud))
+                # flush on the part boundary even when this submap's cloud
+                # is missing, so the tail part is always written
+                if opts.separate_output and (
+                        s.id == n_submaps - 1
+                        or (s.id + 1) % opts.separate_step == 0):
+                    part = s.id // opts.separate_step
+                    if opts.output_direct_combined_map and combined:
+                        pcd_io.write_pcd(
+                            os.path.join(out_dir, f"part_map_{part}.pcd"),
+                            np.vstack(combined))
+                        combined = []
+                    drain()
+                    if mrvm is not None and mrvm.num_voxels:
+                        self._write_static(
+                            os.path.join(out_dir,
+                                         f"static_part_map_{part}.pcd"),
+                            mrvm)
+                        mrvm = MultiResolutionVoxelMap(opts.mrvm_settings)
+            drain()
+            if opts.separate_output:
+                return
+            if mrvm is not None and mrvm.num_voxels:
+                self._write_static(os.path.join(out_dir, "static_map.pcd"),
+                                   mrvm)
+            if combined:
+                pcd_io.write_pcd(os.path.join(out_dir, "whole_map.pcd"),
+                                 np.vstack(combined))
 
     def submap_poses(self) -> List[np.ndarray]:
         return [s.global_pose for s in self.trajectory]

@@ -1,21 +1,25 @@
 """State carried between the JAX package and this port.
 
-This system has no weights: its state is point clouds and the chunked front
-end's ``_FeState``.  The functions here build the port's ``PointCloud``,
-``NormalCloud`` and ``_FeState`` from any object with the same field names
-(the JAX package's dataclasses and NamedTuples, or plain mappings) whose
-leaves convert with ``numpy.asarray``, and turn the port's objects back into
-nested dicts of numpy arrays.  Nothing here imports JAX: a JAX array is read
-through ``numpy.asarray`` like any other array.
+This system has no weights: its state is point clouds, the chunked front
+end's ``_FeState`` and the sequential front end's poses and target.  The
+functions here build the port's ``PointCloud``, ``NormalCloud`` and
+``_FeState`` from any object with the same field names (the JAX package's
+dataclasses and NamedTuples, or plain mappings) whose leaves convert with
+``numpy.asarray``, load a sequential ``FrontEnd`` from another one's state,
+and turn the port's objects back into nested dicts of numpy arrays.
+Nothing here imports JAX: a JAX array is read through ``numpy.asarray``
+like any other array.
 """
 from __future__ import annotations
 
+import collections
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from . import resolve_device
+from .builder.frontend import FrontEnd
 from .builder.pipeline import _FeState
 from .data.cloud import NormalCloud, PointCloud
 
@@ -55,6 +59,28 @@ def fe_state(src, device=None) -> _FeState:
     dev = resolve_device(device)
     return _FeState(normal_cloud(_field(src, "target"), dev),
                     *(_tensor(_field(src, f), dev) for f in _STATE_FIELDS))
+
+
+def load_frontend(front_end: FrontEnd, src) -> None:
+    """Give the port's sequential ``front_end`` the state of ``src`` (the
+    JAX package's ``FrontEnd``, or any object with its attributes): the
+    keyframe pose, the motion accumulated since it, the target normal cloud
+    (onto ``front_end.device``), the counters, and the extrapolator's pose
+    queue and pose-derived velocities.  The IMU tracker's state is not
+    carried."""
+    for name in ("pose_target", "accumulative"):
+        setattr(front_end, name, np.array(_field(src, name), dtype=np.float64))
+    for name in ("got_first", "last_score", "num_scans"):
+        setattr(front_end, name, _field(src, name))
+    target = _field(src, "target")
+    front_end.target = (None if target is None
+                        else normal_cloud(target, front_end.device))
+    ex_src, ex = _field(src, "extrapolator"), front_end.extrapolator
+    ex.timed_pose_queue = collections.deque(
+        (float(t), np.array(T, dtype=np.float64))
+        for t, T in ex_src.timed_pose_queue)
+    for name in ("linear_velocity_from_poses", "angular_velocity_from_poses"):
+        setattr(ex, name, np.array(getattr(ex_src, name), dtype=np.float64))
 
 
 def to_numpy(obj) -> Dict[str, Any]:

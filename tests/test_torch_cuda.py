@@ -1,4 +1,5 @@
-"""The port's CUDA kernel and its main path on a GPU.
+"""The port's CUDA kernels, the MRVM's device reduction and the port's
+paths on a GPU.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -6,6 +7,8 @@ port's dependencies are installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -133,3 +136,157 @@ def test_small_main_path_launches_both_entries(cuda_device, tmp_path):
     assert tnn.launches["single"] > 0 and tnn.launches["batched"] > 0
     poses = kitti.read_poses(str(tmp_path / "kitti_pose.txt"))
     assert len(poses) == len(mb.trajectory) and np.isfinite(poses).all()
+
+
+# ---------------------------------------------------------------------------
+# the NN variants (K3, K4)
+# ---------------------------------------------------------------------------
+
+def _variant_operands(variant, q, t, device):
+    from staticmapping_torch.ops import nn_variants as tnv
+    qd, td = torch.from_numpy(q).to(device), torch.from_numpy(t).to(device)
+    if variant == "packed":
+        return tnv.pad8(qd), tnv.pad8(td)
+    return tnv.aug_q(qd), tnv.aug_t(td)
+
+
+def _variant(variant, a, b, block=None):
+    from staticmapping_torch.ops import nn_variants as tnv
+    kw = {} if block is None else {"block": block}
+    if variant == "packed":
+        return tnv.nearest_packed(a, b, 11, **kw)
+    return tnv.nearest_aug(a, b, variant == "aug_packed", **kw)
+
+
+@pytest.mark.parametrize("variant", ["packed", "aug_packed", "aug"])
+@pytest.mark.parametrize("block", [(64, 4), (128, 2), (256, 1), (32, 8)])
+def test_variant_kernel_matches_plain(cuda_device, variant, block):
+    """Ragged M with N = 2048 (the packed key's 11 bits): every launch
+    shape's kernel picks the plain version's target for ≥ 99.9% of
+    queries; d agrees to the expansion's f32 error at 30 m plus one 11-bit
+    truncation step, and the packed d has its low bits clear."""
+    from staticmapping_torch.ops import nn_variants as tnv
+    rng = np.random.default_rng(19)
+    q = rng.uniform(-30, 30, (3000, 3)).astype(np.float32)
+    t = rng.uniform(-30, 30, (2048, 3)).astype(np.float32)
+    a, b = _variant_operands(variant, q, t, cuda_device)
+    before = tnv.launches[variant]
+    d_k, i_k = _variant(variant, a, b, block)
+    torch.cuda.synchronize()
+    assert tnv.launches[variant] == before + 1
+    d_p, i_p = _variant(variant, a.cpu(), b.cpu())
+    d_k, i_k = d_k.cpu().numpy(), i_k.cpu().numpy()
+    assert i_k.dtype == np.int32 and d_k.shape == (3000,)
+    assert np.mean(i_k == i_p.numpy()) >= 0.999
+    np.testing.assert_allclose(d_k, d_p.numpy(), rtol=2.0 ** -12, atol=5e-2)
+    if variant != "aug":
+        assert not (d_k.view(np.int32) & 2047).any()
+
+
+@pytest.mark.parametrize("variant", ["packed", "aug_packed", "aug"])
+def test_variant_kernel_ties_go_to_the_lowest_index(cuda_device, variant):
+    rng = np.random.default_rng(20)
+    base = rng.uniform(-5, 5, (16, 3)).astype(np.float32)
+    t = np.concatenate([base] * 128)                 # 2048 targets
+    q = base[rng.integers(0, 16, 500)]
+    d_k, i_k = _variant(variant, *_variant_operands(variant, q, t,
+                                                    cuda_device))
+    want = np.array([np.flatnonzero((base == p).all(1))[0] for p in q])
+    np.testing.assert_array_equal(i_k.cpu().numpy(), want)
+
+
+def test_variant_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    from staticmapping_torch.ops import nn_variants as tnv
+    q = torch.zeros((8, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="index bits"):
+        tnv.nearest_packed(q, torch.zeros((8, 2049), device=cuda_device))
+    with pytest.raises(TypeError, match="float32"):
+        tnv.nearest_aug(q.double(), q.double(), False)
+    with pytest.raises(ValueError, match="contiguous"):
+        tnv.nearest_aug(torch.zeros((64, 8), device=cuda_device).T, q, False)
+    with pytest.raises(ValueError, match="launchable"):
+        tnv.nearest_aug(q, q, False, block=(64, 32))
+
+
+# ---------------------------------------------------------------------------
+# the MRVM
+# ---------------------------------------------------------------------------
+
+def test_scan_events_on_the_gpu_match_the_cpu(cuda_device):
+    """The MRVM's per-scan reduction on the GPU and on the CPU: the same
+    valid voxels with the same hit and miss counts (≥ 99.9%), and per-voxel
+    sums to f32 tolerance (the GPU adds them with atomics)."""
+    from staticmapping_torch.builder import mrvm
+    rng = np.random.default_rng(21)
+    n = 8192
+    xyz = np.column_stack([rng.uniform(-40, 40, n), rng.uniform(-40, 40, n),
+                           rng.uniform(-2, 3, n)]).astype(np.float32)
+    inten = rng.uniform(0, 100, n).astype(np.float32)
+    mask = rng.uniform(0, 1, n) < 0.9
+    origin = np.array([0.5, -0.3, 1.7], dtype=np.float32)
+
+    def run(dev):
+        return [x.cpu().numpy() for x in mrvm._scan_events(
+            torch.from_numpy(xyz).to(dev), torch.from_numpy(mask).to(dev),
+            torch.from_numpy(inten).to(dev),
+            torch.from_numpy(origin).to(dev), 0.1, 48)]
+
+    g, c = run(cuda_device), run("cpu")
+
+    def by_key(out):
+        keys, valid = out[0], out[6]
+        k = keys[valid].astype(np.int64) + (1 << 20)
+        return ((k[:, 0] << 42) | (k[:, 1] << 21) | k[:, 2],
+                *(x[valid] for x in out[1:6]))
+
+    g, c = by_key(g), by_key(c)
+    common, ig, ic = np.intersect1d(g[0], c[0], return_indices=True)
+    same = (g[1][ig] == c[1][ic]) & (g[2][ig] == c[2][ic])
+    union = len(g[0]) + len(c[0]) - len(common)
+    assert same.sum() >= 0.999 * union
+    ig, ic = ig[same], ic[same]
+    np.testing.assert_allclose(g[3][ig], c[3][ic], rtol=1e-5, atol=1e-3)
+    np.testing.assert_array_equal(g[4][ig], c[4][ic])     # max intensity
+    np.testing.assert_allclose(g[5][ig], c[5][ic], rtol=1e-5, atol=1e-2)
+
+
+def test_native_mrvm_store_builds_and_merges():
+    """The host C++ store builds where the GPU tests run and agrees with
+    the numpy store."""
+    from staticmapping_torch.builder import mrvm_store
+    rng = np.random.default_rng(22)
+    native, plain = mrvm_store.make_store(), mrvm_store.make_store(False)
+    keys = np.unique(rng.integers(-30, 30, (2000, 3)), axis=0).astype(
+        np.int32)
+    n = len(keys)
+    hits = rng.integers(0, 5, n).astype(np.float32)
+    for st in (native, plain):
+        st.merge(keys, hits, rng.integers(0, 3, n).astype(np.float32) * 0,
+                 np.zeros((n, 3), np.float32),
+                 np.full(n, 7.0, np.float32), hits * 2.0, cap=3.0)
+    assert native.size == plain.size == n
+    a, b = native.export(), plain.export()
+    oa, ob = np.lexsort(a[0].T[::-1]), np.lexsort(b[0].T[::-1])
+    for xa, xb in zip(a, b):
+        np.testing.assert_allclose(xa[oa], xb[ob])
+
+
+def test_short_cli_run(cuda_device, tmp_path):
+    """``python -m staticmapping_torch --device cuda`` on a short synthetic
+    run: the sequential front end launches the single-pair kernel, and the
+    outputs, static map included, are written."""
+    import subprocess
+    import sys
+    from staticmapping_torch.io import kitti, pcd
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "staticmapping_torch", "--synthetic",
+         "straight", "--scans", "8", "--out", str(out), "--no-backend",
+         "--device", "cuda", "--gt", str(out / "gt_pose.txt")],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert proc.returncode == 0, proc.stderr
+    assert "ATE RMSE" in proc.stdout
+    poses = kitti.read_poses(str(out / "kitti_pose.txt"))
+    assert len(poses) >= 1 and np.isfinite(poses).all()
+    assert len(pcd.read_pcd(str(out / "static_map.pcd"))) > 0

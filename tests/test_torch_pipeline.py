@@ -201,35 +201,34 @@ def test_memory_manager_offloads_inactive_submaps(tmp_path):
 
 def _gate_cases():
     fe = tfrontend.FrontEndOptions
-    sub = tframe.SubmapOptions
     return {
-        "sequential": (dict(pipelined=False), None),
-        "mrvm": (dict(output_mrvm=True), None),
         "map_package": (dict(save_map_package=True), None),
         "backend": ({}, object()),
         "matcher_type_3": (dict(front_end=fe(matcher_type=3)), None),
         "matcher_type_5": (dict(front_end=fe(matcher_type=5)), None),
-        "inner_mrvm": (dict(submap=sub(frame_count=1,
-                                       enable_inner_mrvm=True)), None),
+        "sequential_matcher_type_1": (dict(pipelined=False,
+                                           front_end=fe(matcher_type=1)),
+                                      None),
+        "sequential_matcher_type_3": (dict(pipelined=False,
+                                           front_end=fe(matcher_type=3)),
+                                      None),
     }
 
 
 @pytest.mark.parametrize("case", sorted(_gate_cases()))
 def test_unported_options_raise(case, tmp_path):
-    """Every option whose code is not ported raises NotImplementedError:
-    at construction, or at the first submap for the inner MRVM."""
+    """Every option whose code is not ported raises NotImplementedError at
+    construction (the map package, a back end, matchers other than type
+    6)."""
     overrides, backend = _gate_cases()[case]
-    kw = {"pipelined": True, "output_mrvm": False,
-          "export_file_path": str(tmp_path), **overrides}
+    kw = {"pipelined": True, "export_file_path": str(tmp_path), **overrides}
     with pytest.raises(NotImplementedError):
-        mb = tmb.MapBuilder(tmb.MapBuilderOptions(**kw), backend=backend,
-                            device=CPU)
-        mb.insert_pointcloud(0.0, np.zeros((10, 3), np.float32))
+        tmb.MapBuilder(tmb.MapBuilderOptions(**kw), backend=backend,
+                       device=CPU)
 
 
 def test_entry_points_need_cuda_by_default():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        tmb.MapBuilder(tmb.MapBuilderOptions(pipelined=True,
-                                             output_mrvm=False))
+        tmb.MapBuilder(tmb.MapBuilderOptions(pipelined=True))
