@@ -5,7 +5,10 @@
 Builds the port's native libraries from ``staticmapping_torch/csrc`` (one
 compiler per source, all started together), then, one phase after another:
 - ``nn_sweep`` / ``nn_kernel_vs_plain``: the 1-NN kernel (K1, K2) against an
-  exact host check and its plain PyTorch version, timed;
+  exact host check and its plain PyTorch version, timed over the whole call
+  (split kernel and merge) beside its bound, with the plan it ran;
+- ``nn_plan_sweep``: a few (R, block, S) plans of the 1-NN kernel at both
+  main shapes, each held to the chosen plan's output bit for bit, timed;
 - ``main_path``: the pipelined type-6 ``MapBuilder`` at the JAX package's
   default widths on a synthetic sequence, checked against the ground truth;
 - ``nn_variants``: the variant kernels (K3, K4 in both modes) against their
@@ -37,6 +40,7 @@ import torch
 
 from scripts.main_path import (CLI_PATH, MAIN_PATH, cli_sequence,
                                stamp_matched_ate, write_kitti_bins)
+from scripts.nn_kernel_times import eager_ms as time_ms, graph_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEV = torch.device("cuda")
@@ -164,37 +168,42 @@ def sweep(nn_search) -> None:
             raise AssertionError(f"nn kernel fails the contract at {label}")
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` launches, after a warm
-    launch, by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def nn_bound(b: int, m: int, n: int):
+    """``(bound_ms, bound_by)`` of one 1-NN call on ``max(b, 1)`` pairs."""
+    pairs = max(b, 1) * m * n
+    flop_s = pairs * NN_FLOPS_PER_PAIR / PEAK_FP32_FLOPS
+    # each query and target read once (12 B), d² and idx written (8 B)
+    byte_s = max(b, 1) * (12 * (m + n) + 8 * m) / PEAK_BYTES_PER_S
+    return (1e3 * max(flop_s, byte_s),
+            "operations" if flop_s >= byte_s else "bytes")
+
+
+def main_shape_inputs(nn_search, rng, b, m, n):
+    """``(q, t, mask, tgt)`` on the card: uniform in ±30 m, the last
+    sixteenth of the targets invalid, ``tgt`` the targets pre-masked as
+    ``nearest_1`` hands them to the kernel."""
+    lead = (b,) if b else ()
+    q = torch.from_numpy(rng.uniform(-30, 30, lead + (m, 3))
+                         .astype(np.float32)).to(DEV)
+    t = torch.from_numpy(rng.uniform(-30, 30, lead + (n, 3))
+                         .astype(np.float32)).to(DEV)
+    mask = torch.ones(lead + (n,), dtype=torch.bool, device=DEV)
+    mask[..., -n // 16:] = False
+    return q, t, mask, torch.where(mask[..., None], t, nn_search._FAR)
 
 
 def kernel_vs_plain(nn_search) -> dict:
     """Each entry against ``_nearest_plain`` on the same card and inputs at
     the main path's shape, then timed beside the plain version, one
     library call (``torch.cdist`` + min, a yardstick the port never calls)
-    and the bound."""
+    and the bound.  The kernel's time (``ms``) is the device time of the
+    whole ``_nearest_cuda`` call, the split kernel and, where the plan has
+    S > 1, the merge, replayed from a CUDA graph; ``eager_ms`` is the same
+    call issued from Python, the host's dispatch included."""
     rng = np.random.default_rng(1)
     out = {}
     for entry, (b, m, n) in MAIN_SHAPES.items():
-        lead = (b,) if b else ()
-        q = torch.from_numpy(rng.uniform(-30, 30, lead + (m, 3))
-                             .astype(np.float32)).to(DEV)
-        t = torch.from_numpy(rng.uniform(-30, 30, lead + (n, 3))
-                             .astype(np.float32)).to(DEV)
-        mask = torch.ones(lead + (n,), dtype=torch.bool, device=DEV)
-        mask[..., -n // 16:] = False
-        tgt = torch.where(mask[..., None], t, nn_search._FAR)
+        q, t, mask, tgt = main_shape_inputs(nn_search, rng, b, m, n)
         d_k, i_k = nn_search.nearest_1(q, t, mask)
         d_p, i_p = nn_search._nearest_plain(q, tgt, mask)
         torch.cuda.synchronize()
@@ -205,24 +214,93 @@ def kernel_vs_plain(nn_search) -> dict:
         if agree < 0.999 or max_abs_err > 5e-2:
             raise AssertionError(f"{entry}: kernel vs plain idx agree "
                                  f"{agree}, max |d2 err| {max_abs_err}")
-        reps = 20 if entry == "single" else 5
+        reps = 50 if entry == "single" else 10
         # the kernel alone, on the same pre-masked targets as the plain one
-        ms = time_ms(lambda: nn_search._nearest_cuda(q, tgt), reps)
+        call = lambda: nn_search._nearest_cuda(q, tgt)
+        ms, eager_ms = graph_ms(call, reps), time_ms(call, reps)
         plain_ms = time_ms(
             lambda: nn_search._nearest_plain(q, tgt, mask), max(2, reps // 4))
         library_ms = time_ms(lambda: torch.cdist(q, tgt).min(-1), 3)
-        pairs = max(b, 1) * m * n
-        flop_s = pairs * NN_FLOPS_PER_PAIR / PEAK_FP32_FLOPS
-        # each query and target read once (12 B), d² and idx written (8 B)
-        byte_s = max(b, 1) * (12 * (m + n) + 8 * m) / PEAK_BYTES_PER_S
+        bound_ms, bound_by = nn_bound(b, m, n)
+        plan = nn_search.plan(max(b, 1), m, n,
+                              sms=nn_search._sm_count(DEV))
         out[entry] = {"shape": [b, m, n], "idx_agree": agree,
                       "max_abs_err": max_abs_err, "ms": ms,
+                      "eager_ms": eager_ms,
                       "plain_ms": plain_ms, "library_ms": library_ms,
-                      "bound_ms": 1e3 * max(flop_s, byte_s),
-                      "bound_by": "operations" if flop_s >= byte_s
-                      else "bytes"}
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "share_of_bound": bound_ms / ms,
+                      "plan": plan._asdict()}
         emit({"phase": "nn_kernel_vs_plain", "entry": entry, **out[entry]})
         del q, t, mask, tgt, d_k, i_k, d_p, i_p
+        torch.cuda.empty_cache()
+    return out
+
+
+def under_load(fn, seconds: float = 1.0) -> dict:
+    """The SM clock (MHz) and power draw (W) that ``nvidia-smi`` samples
+    every 100 ms while ``fn()`` runs back to back for ``seconds``."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        lines = smi.communicate()[0].splitlines()
+    samples = [[float(v) for v in ln.split(",")] for ln in lines
+               if ln.count(",") == 1]
+    return {"sm_mhz": [c for c, _ in samples],
+            "power_w": [w for _, w in samples]}
+
+
+def plan_sweep(nn_search) -> dict:
+    """At each main shape, the chosen plan, every other (R, block) instance
+    with its own split count, and the chosen (R, block) at other split
+    counts: each must give the chosen plan's d² and idx bit for bit (d' is
+    computed alike in every plan, and the first index of its minimum does
+    not depend on the order of the walk), then is timed over the whole
+    call from a CUDA graph.  The chosen plan then runs for a second while
+    ``nvidia-smi`` samples the SM clock and the power draw."""
+    rng = np.random.default_rng(3)
+    sms = nn_search._sm_count(DEV)
+    out = {}
+    for entry, (b, m, n) in MAIN_SHAPES.items():
+        q, _, _, tgt = main_shape_inputs(nn_search, rng, b, m, n)
+        bb = max(b, 1)
+        chosen = nn_search.plan(bb, m, n, sms=sms)
+        plans = [chosen] + [nn_search.plan(bb, m, n, r, blk, sms=sms)
+                            for r, blk in sorted(nn_search.INSTANCES)
+                            if (r, blk) != (chosen.r, chosen.block)]
+        for s in sorted({1, max(1, chosen.splits // 2), 2 * chosen.splits}
+                        - {chosen.splits}):
+            plans.append(nn_search.plan(bb, m, n, splits=s, sms=sms))
+        d_ref, i_ref = nn_search._nearest_cuda(q, tgt, chosen)
+        bound_ms, bound_by = nn_bound(b, m, n)
+        rows = []
+        for p in plans:
+            d, i = nn_search._nearest_cuda(q, tgt, p)
+            if not (torch.equal(d, d_ref) and torch.equal(i, i_ref)):
+                raise AssertionError(f"{entry}: plan {p} differs from the "
+                                     f"chosen plan {chosen}")
+            ms = graph_ms(lambda p=p: nn_search._nearest_cuda(q, tgt, p),
+                          50 if entry == "single" else 10)
+            rows.append({"r": p.r, "block": p.block, "splits": p.splits,
+                         "split_len": p.split_len, "grid": list(p.grid),
+                         "ms": ms, "share_of_bound": bound_ms / ms,
+                         "chosen": p == chosen})
+        out[entry] = rows
+        emit({"phase": "nn_plan_sweep", "entry": entry, "shape": [b, m, n],
+              "bound_ms": bound_ms, "bound_by": bound_by, "sms": sms,
+              "under_load": under_load(
+                  lambda: nn_search._nearest_cuda(q, tgt, chosen)),
+              "plans": rows})
+        del q, tgt, d_ref, i_ref
         torch.cuda.empty_cache()
     return out
 
@@ -562,6 +640,7 @@ def main() -> int:
 
     sweep(nn_search)
     timing = kernel_vs_plain(nn_search)
+    plan_sweep(nn_search)
     res = main_path(nn_search)
     vtiming = variant_kernels(nn_search, nn_variants)
     bench = variant_bench(nn_variants)

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -75,23 +75,93 @@ def _nearest_plain(query: torch.Tensor, tgt: torch.Tensor,
     return best_d, best_i
 
 
+# Compile-time constants and (R, block) instances of csrc/nn_search.cu.
+GROUP = 16               # kGroup: targets per running-min group
+PREFETCH = 4             # kPrefetch: targets per thread per shared tile
+INSTANCES = frozenset({(2, 128), (2, 256), (4, 64), (4, 128), (4, 256),
+                       (8, 64), (8, 128), (8, 256)})
+# The default (R, block), chosen by chip_smoke.py's nn_plan_sweep.
+DEFAULT_R, DEFAULT_BLOCK = 2, 256
+# Splitting the targets fills the card up to about this many warps per SM
+# (4 blocks of 128 threads), and no split then holds fewer than MIN_SPLIT
+# targets.
+WARPS_PER_SM = 16
+MIN_SPLIT = 256
+H100_SMS = 132
+
+
+class NNPlan(NamedTuple):
+    """A launch of ``csrc/nn_search.cu``.  Split ``s`` covers targets
+    ``[s * split_len, min(n, (s + 1) * split_len))``."""
+    r: int                      # queries a thread
+    block: int                  # threads a block
+    splits: int                 # S: target slices, each its own block
+    split_len: int              # targets a slice, a multiple of GROUP
+    grid: Tuple[int, int, int]  # (query tiles, S, batch)
+    scratch: int                # elements of each [S, B, M] partial buffer
+
+
+def _cut(n: int, splits: int) -> Tuple[int, int]:
+    """``(splits, split_len)`` with no empty split."""
+    per_split = -(-n // splits)
+    length = max(GROUP, -(-per_split // GROUP) * GROUP)
+    return max(1, -(-n // length)), length
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(b: int, m: int, n: int, r: Optional[int] = None,
+         block: Optional[int] = None, splits: Optional[int] = None,
+         sms: int = H100_SMS) -> NNPlan:
+    """The launch for ``b`` pairs of ``m`` queries and ``n`` targets on a
+    card of ``sms`` SMs.  Unless ``splits`` is given, the targets are split
+    until the grid holds about WARPS_PER_SM warps per SM, with every split
+    holding at least MIN_SPLIT targets; S is 1 where the query tiles alone
+    fill the card.  ``r`` and ``block`` default to the measured best."""
+    r = DEFAULT_R if r is None else r
+    block = DEFAULT_BLOCK if block is None else block
+    if (r, block) not in INSTANCES:
+        raise ValueError(f"no kernel instance for r={r}, block={block}; "
+                         f"have {sorted(INSTANCES)}")
+    tiles = -(-m // (r * block))
+    floor = 1
+    if splits is None:
+        want = WARPS_PER_SM * 32 * sms / (block * max(1, b * tiles))
+        splits = max(1, min(int(want + 0.5), n // MIN_SPLIT))
+        floor = MIN_SPLIT
+    if splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    splits, length = _cut(n, splits)
+    while splits > 1 and n - (splits - 1) * length < floor:
+        splits, length = _cut(n, splits - 1)
+    return NNPlan(r, block, splits, length, (tiles, splits, b),
+                  splits * b * m if splits > 1 else 0)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = cuda_build.load("nn_search").nn_search_forward
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _nearest_cuda(query: torch.Tensor, tgt: torch.Tensor
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _nearest_cuda(query: torch.Tensor, tgt: torch.Tensor,
+                  launch: Optional[NNPlan] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/nn_search.cu``: ``query [M, 3] | [B, M, 3]``, ``tgt
     [N, 3] | [B, N, 3]`` (f32, contiguous, on one CUDA device; invalid rows
     already far away).  A 2-D operand beside a 3-D one is broadcast over
-    the batch.  Counts one launch under ``single`` (both 2-D) or
-    ``batched``."""
+    the batch.  ``launch`` overrides :func:`plan` for the card's SM count.
+    Counts one call under ``single`` (both 2-D) or ``batched``; with S > 1
+    the call is two launches, the split kernel and the merge."""
     for name, x in (("query", query), ("target", tgt)):
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -111,16 +181,29 @@ def _nearest_cuda(query: torch.Tensor, tgt: torch.Tensor
         raise ValueError(f"batch sizes differ: {b_q} vs {b_t}")
     b = max(b_q, b_t)
     m, n = query.shape[-2], tgt.shape[-2]
-    if b > 65535 or m >= 2**31 or n >= 2**31:
+    if b > 65535 or m >= 2**31 or n >= 2**30:
         raise ValueError(f"shape out of the kernel's range: B={b} M={m} N={n}")
-    d2 = torch.empty((b, m), dtype=torch.float32, device=query.device)
-    idx = torch.empty((b, m), dtype=torch.int32, device=query.device)
+    p = launch or plan(b, m, n, sms=_sm_count(query.device))
+    s = p.splits
+    if (p.grid != (-(-m // (p.r * p.block)), s, b) or not 0 < s <= 65535
+            or not (s - 1) * p.split_len < max(n, 1) <= s * p.split_len
+            or p.scratch != (s * b * m if s > 1 else 0)):
+        raise ValueError(f"plan {p} does not fit B={b} M={m} N={n}")
+    dev = query.device
+    d2 = torch.empty((b, m), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, m), dtype=torch.int32, device=dev)
+    part_d = part_i = 0                   # the [S, B, M] d' and idx partials
+    if p.scratch:
+        part = torch.empty(2 * p.scratch, dtype=torch.int32, device=dev)
+        part_d = part.data_ptr()
+        part_i = part_d + 4 * p.scratch
     rc = _kernel_fn()(
         query.data_ptr(), tgt.data_ptr(), d2.data_ptr(), idx.data_ptr(),
-        b, m, n,
+        part_d, part_i, b, m, n,
         m * 3 if query.dim() == 3 and b_q > 1 else 0,
         n * 3 if tgt.dim() == 3 and b_t > 1 else 0,
-        torch.cuda.current_stream(query.device).cuda_stream)
+        p.r, p.block, p.splits, p.split_len,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nn_search kernel launch failed: CUDA error {rc}")
     launches["batched" if batched else "single"] += 1

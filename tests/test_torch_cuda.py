@@ -99,6 +99,130 @@ def test_kernel_single_query_and_target(cuda_device):
     np.testing.assert_allclose(d_k, [4.0])
 
 
+def _grid_problem(rng, lead, m, n, span=3):
+    """Integer-grid points in [-span, span]: every d² is exact in f32, so
+    ties are exact and the kernel must pick the plain version's index."""
+    q = rng.integers(-span, span + 1, lead + (m, 3)).astype(np.float32)
+    t = rng.integers(-span, span + 1, lead + (n, 3)).astype(np.float32)
+    return q, t, np.ones(lead + (n,), dtype=bool)
+
+
+def _kernel_with(q, t, mask, device, launch):
+    """``nearest_1``'s masking, then ``_nearest_cuda`` under ``launch``."""
+    qd, td, md = (torch.from_numpy(x).to(device) for x in (q, t, mask))
+    tgt = torch.where(md[..., None], td, torch.full_like(td, tnn._FAR))
+    d, i = tnn._nearest_cuda(qd.contiguous(), tgt.contiguous(), launch)
+    torch.cuda.synchronize()
+    return d.cpu().numpy(), i.cpu().numpy()
+
+
+def _plain(q, t, mask):
+    d, i = tnn.nearest_1(*(torch.from_numpy(x) for x in (q, t, mask)))
+    return d.numpy(), i.numpy()
+
+
+@pytest.mark.parametrize("r,block,splits", [
+    (4, 128, 1), (4, 128, 3), (2, 256, 5), (8, 64, 7), (8, 256, 2)])
+def test_kernel_ties_straddle_groups_and_splits(cuda_device, r, block,
+                                                splits):
+    """Exact ties placed on both sides of every group boundary and every
+    split boundary: the lowest index wins, as in ``_nearest_scan``."""
+    rng = np.random.default_rng(23)
+    m, n = 700, 2000
+    q, t, mask = _grid_problem(rng, (), m, n, span=6)
+    launch = tnn.plan(1, m, n, r, block, splits)
+    assert launch.splits == splits
+    cuts = sorted({s * launch.split_len for s in range(1, splits)}
+                  | set(range(tnn.GROUP, n, tnn.GROUP * 25)))
+    for k, c in enumerate(cuts):    # t[c - 1] == t[c], off the grid, unique
+        t[c - 1] = t[c] = (7 + k, 7, 7)
+    q[:len(cuts)] = t[cuts]         # a query on each duplicate
+    mask[:3] = False
+    d_k, i_k = _kernel_with(q, t, mask, cuda_device, launch)
+    d_p, i_p = _plain(q, t, mask)
+    np.testing.assert_array_equal(i_k, i_p)
+    np.testing.assert_array_equal(d_k, d_p)
+    np.testing.assert_array_equal(i_k[:len(cuts)], np.array(cuts) - 1)
+    np.testing.assert_array_equal(d_k[:len(cuts)], 0.0)
+
+
+@pytest.mark.parametrize("lead,m,n,want_split", [
+    ((), 4096, 8192, True),            # 8 query tiles: the targets split
+    ((), 300, 3000, True),
+    ((64,), 4096, 600, False),         # 512 blocks already fill the card
+    ((2,), 1000, 500, False),          # too few targets to split
+])
+def test_kernel_plan_splits_or_not(cuda_device, lead, m, n, want_split):
+    """The automatic plan at shapes that split the targets and at shapes
+    that do not, against the plain version."""
+    rng = np.random.default_rng(24)
+    q, t, mask = _problem(rng, lead, m, n, n // 10)
+    launch = tnn.plan(lead[0] if lead else 1, m, n,
+                      sms=tnn._sm_count(cuda_device))
+    assert (launch.splits > 1) == want_split
+    d_k, i_k, d_p, i_p = _both(q, t, mask, cuda_device)
+    assert np.mean(i_k == i_p) >= 0.999
+    np.testing.assert_allclose(d_k, d_p, atol=5e-2)
+
+
+@pytest.mark.parametrize("m,n,splits", [
+    (1, 1, None), (3, 5, None), (2, 7, 1), (3, 12, 2), (1, 20, 3),
+    (5, 33, 4)])
+def test_kernel_fewer_queries_than_r_and_targets_than_groups(
+        cuda_device, m, n, splits):
+    """M below one thread's R, and N below S × GROUP (ragged last group,
+    splits of one group), on integer-grid points: exactly the plain
+    version's picks."""
+    rng = np.random.default_rng(25)
+    q, t, mask = _grid_problem(rng, (), m, n, span=2)
+    launch = tnn.plan(1, m, n, 8, 128, splits)
+    d_k, i_k = _kernel_with(q, t, mask, cuda_device, launch)
+    d_p, i_p = _plain(q, t, mask)
+    np.testing.assert_array_equal(i_k, i_p)
+    np.testing.assert_array_equal(d_k, d_p)
+
+
+@pytest.mark.parametrize("broadcast", ["none", "query", "target"])
+@pytest.mark.parametrize("splits", [1, 4])
+def test_kernel_ragged_batches_with_broadcast(cuda_device, broadcast,
+                                              splits):
+    """Ragged M and N on the batched entry, with and without a broadcast
+    operand, and on the single entry per pair, at S = 1 and S > 1:
+    exactly the plain version's picks on integer-grid points."""
+    rng = np.random.default_rng(26)
+    b, m, n = 3, 1001, 3003
+    q, t, mask = _grid_problem(rng, (b,), m, n, span=9)
+    mask[1, 100:200] = False
+    if broadcast == "query":
+        q = q[0]
+    elif broadcast == "target":
+        t, mask = t[0], mask[0]
+    launch = tnn.plan(b, m, n, splits=splits)
+    before = tnn.launches["batched"]
+    d_k, i_k = _kernel_with(q, t, mask, cuda_device, launch)
+    assert tnn.launches["batched"] == before + 1
+    d_p, i_p = _plain(q, t, mask)
+    np.testing.assert_array_equal(i_k, i_p)
+    np.testing.assert_array_equal(d_k, d_p)
+    for k in range(b):                       # the single entry, pair k
+        qk = q if q.ndim == 2 else q[k]
+        tk, mk = (t, mask) if t.ndim == 2 else (t[k], mask[k])
+        d_s, i_s = _kernel_with(qk, tk, mk, cuda_device,
+                                tnn.plan(1, m, n, splits=splits))
+        np.testing.assert_array_equal(i_s, i_p[k])
+        np.testing.assert_array_equal(d_s, d_p[k])
+
+
+def test_wrapper_refuses_a_plan_it_has_no_kernel_for(cuda_device):
+    q = torch.zeros((8, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="does not fit"):
+        tnn._nearest_cuda(q, q, tnn.plan(2, 8, 8))
+    with pytest.raises(ValueError, match="does not fit"):
+        tnn._nearest_cuda(q, q, tnn.plan(1, 8, 8)._replace(split_len=0))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tnn._nearest_cuda(q, q, tnn.NNPlan(3, 128, 1, 8, (1, 1, 1), 0))
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     q = torch.zeros((8, 3), device=cuda_device)
     with pytest.raises(TypeError, match="float32"):
