@@ -11,9 +11,13 @@ compiler per source, all started together), then, one phase after another:
   main shapes, each held to the chosen plan's output bit for bit, timed;
 - ``main_path``: the pipelined type-6 ``MapBuilder`` at the JAX package's
   default widths on a synthetic sequence, checked against the ground truth;
-- ``nn_variants``: the variant kernels (K3, K4 in both modes) against their
-  plain versions and the near-tie contract, timed, then the port's variant
-  bench (``python -m staticmapping_torch.ops.nn_variants``) run once;
+- ``nn_variant_vs_plain``: the variant kernels (K3, K4 in both modes)
+  against their plain versions and the near-tie contract, timed like K1;
+- ``nn_variant_plan_sweep``: every (R, block) instance and a few split
+  counts of the variant kernels, each held to the chosen plan's output bit
+  for bit, timed;
+- ``nn_variant_bench``: the port's variant bench (``python -m
+  staticmapping_torch.ops.nn_variants``) run once;
 - ``cli``: ``python -m staticmapping_torch --cfg config/lidar_only_kitti.xml
   --kitti DIR --no-backend`` on .bin files of the same world at full width:
   the sequential front end and the MRVM static map, checked against the
@@ -410,32 +414,57 @@ def main_path(nn_search) -> dict:
 # the NN variants (K3, K4)
 # ---------------------------------------------------------------------------
 
-def variant_kernels(nn_search, nn_variants) -> dict:
-    """Each variant kernel against its plain version on the same card and
-    inputs at the bench's shape, the near-tie contract (``check_one``), then
-    timed beside the plain version, ``torch.cdist`` + min (a yardstick the
-    port never calls), the K1 kernel at the same shape, and the bound."""
+def variant_inputs(nn_variants):
+    """``(q, t, operands)`` at the bench's shape: the points (numpy) and
+    each variant's ``[8, ·]`` operands on the card."""
     m, n = VARIANT_SHAPE
     rng = np.random.default_rng(2)
     q = rng.uniform(-30, 30, (m, 3)).astype(np.float32)
     t = rng.uniform(-30, 30, (n, 3)).astype(np.float32)
     qd, td = torch.from_numpy(q).to(DEV), torch.from_numpy(t).to(DEV)
-    operands = {"packed": (nn_variants.pad8(qd), nn_variants.pad8(td)),
-                "aug_packed": (nn_variants.aug_q(qd), nn_variants.aug_t(td)),
-                "aug": (nn_variants.aug_q(qd), nn_variants.aug_t(td))}
-    pairs = m * n
-    flop_s = pairs * NN_FLOPS_PER_PAIR / PEAK_FP32_FLOPS
+    qa, ta = nn_variants.aug_q(qd), nn_variants.aug_t(td)
+    return q, t, {"packed": (nn_variants.pad8(qd), nn_variants.pad8(td)),
+                  "aug_packed": (qa, ta), "aug": (qa, ta)}
+
+
+def variant_bound():
+    """``(bound_ms, bound_by)`` of one variant call at the bench's shape."""
+    m, n = VARIANT_SHAPE
+    flop_s = m * n * NN_FLOPS_PER_PAIR / PEAK_FP32_FLOPS
     # each [8, ·] operand column read once (32 B), d and idx written (8 B)
     byte_s = (32 * (m + n) + 8 * m) / PEAK_BYTES_PER_S
-    library_ms = time_ms(lambda: torch.cdist(qd, td).min(-1), 20)
-    k1_ms = time_ms(lambda: nn_search._nearest_cuda(qd, td), 50)
+    return (1e3 * max(flop_s, byte_s),
+            "operations" if flop_s >= byte_s else "bytes")
+
+
+def variant_call(nn_variants, variant, a, b, launch):
+    """The kernel of ``variant`` on ``a``, ``b`` under ``launch``, with the
+    index bits of the bench (11 for every form)."""
+    return nn_variants._cuda(variant, a, b, nn_variants.AUG_IDX_BITS, launch)
+
+
+def variant_kernels(nn_search, nn_variants) -> dict:
+    """Each variant kernel against its plain version on the same card and
+    inputs at the bench's shape, the near-tie contract (``check_one``), then
+    timed beside the plain version, ``torch.cdist`` + min (a yardstick the
+    port never calls), the K1 kernel at the same shape, and the bound.  The
+    kernel's ``ms`` is the device time of one whole call (the split kernel
+    and, where the plan has S > 1, the merge), replayed from a CUDA graph;
+    ``eager_ms`` is the same call issued from Python.  The library call and
+    K1 are replayed from a graph too."""
+    m, n = VARIANT_SHAPE
+    q, t, operands = variant_inputs(nn_variants)
+    qd, td = torch.from_numpy(q).to(DEV), torch.from_numpy(t).to(DEV)
+    bound_ms, bound_by = variant_bound()
+    chosen = nn_variants.plan(m, n, sms=nn_search._sm_count(DEV))
+    library_ms = graph_ms(lambda: torch.cdist(qd, td).min(-1), 20)
+    k1_ms = graph_ms(lambda: nn_search._nearest_cuda(qd, td), 50)
     out = {}
     for variant, (a, b) in operands.items():
-        bits = nn_variants.AUG_IDX_BITS      # the bench's K3 uses 11 too
-        kernel = lambda a=a, b=b, v=variant, bits=bits: nn_variants._cuda(
-            v, a, b, bits, nn_variants.BLOCKS[0])
-        plain = lambda a=a, b=b, v=variant, bits=bits: nn_variants._plain(
-            v, a, b, bits)
+        kernel = lambda a=a, b=b, v=variant: variant_call(
+            nn_variants, v, a, b, chosen)
+        plain = lambda a=a, b=b, v=variant: nn_variants._plain(
+            v, a, b, nn_variants.AUG_IDX_BITS)
         d_k, i_k = kernel()
         d_p, i_p = plain()
         torch.cuda.synchronize()
@@ -443,12 +472,14 @@ def variant_kernels(nn_search, nn_variants) -> dict:
         max_abs_err = float((d_k - d_p).abs().max())
         contract = check_one(q, t, np.ones(n, dtype=bool),
                              d_k.cpu().numpy(), i_k.cpu().numpy())
+        ms = graph_ms(kernel, 50)
         res = {"shape": [m, n], "idx_agree": agree,
                "max_abs_err": max_abs_err, "contract": contract,
-               "ms": time_ms(kernel, 50), "plain_ms": time_ms(plain, 5),
+               "ms": ms, "eager_ms": time_ms(kernel, 50),
+               "plain_ms": time_ms(plain, 5),
                "library_ms": library_ms, "k1_ms": k1_ms,
-               "bound_ms": 1e3 * max(flop_s, byte_s),
-               "bound_by": "operations" if flop_s >= byte_s else "bytes"}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "share_of_bound": bound_ms / ms, "plan": chosen._asdict()}
         emit({"phase": "nn_variant_vs_plain", "variant": variant, **res})
         # the two f32 orders round d² differently (and the packed key then
         # truncates): hold idx to the near-tie share and d² to the
@@ -458,6 +489,47 @@ def variant_kernels(nn_search, nn_variants) -> dict:
                                  f"{agree}, max |d2 err| {max_abs_err}, "
                                  f"contract {contract}")
         out[variant] = res
+    return out
+
+
+def variant_plan_sweep(nn_search, nn_variants) -> dict:
+    """At the bench's shape, for each variant: the chosen plan, every other
+    (R, block) instance with its own split count, and the chosen (R, block)
+    at S = 1, S/2 and min(2S, 8).  Each must give the chosen plan's d and
+    idx bit for bit (every plan evaluates a pair alike, and the first index
+    of the least key does not depend on the order of the walk), then is
+    timed over the whole call from a CUDA graph."""
+    m, n = VARIANT_SHAPE
+    _, _, operands = variant_inputs(nn_variants)
+    sms = nn_search._sm_count(DEV)
+    bound_ms, bound_by = variant_bound()
+    chosen = nn_variants.plan(m, n, sms=sms)
+    plans = [chosen] + [nn_variants.plan(m, n, r, blk, sms=sms)
+                        for r, blk in sorted(nn_variants.INSTANCES)
+                        if (r, blk) != (chosen.r, chosen.block)]
+    for s in sorted({1, max(1, chosen.splits // 2),
+                     min(2 * chosen.splits, nn_variants.MAX_SPLITS)}
+                    - {chosen.splits}):
+        plans.append(nn_variants.plan(m, n, splits=s, sms=sms))
+    out = {}
+    for variant, (a, b) in operands.items():
+        d_ref, i_ref = variant_call(nn_variants, variant, a, b, chosen)
+        rows = []
+        for p in plans:
+            d, i = variant_call(nn_variants, variant, a, b, p)
+            if not (torch.equal(d, d_ref) and torch.equal(i, i_ref)):
+                raise AssertionError(f"{variant}: plan {p} differs from the "
+                                     f"chosen plan {chosen}")
+            ms = graph_ms(lambda p=p: variant_call(nn_variants, variant, a,
+                                                   b, p), 50)
+            rows.append({"r": p.r, "block": p.block, "splits": p.splits,
+                         "split_len": p.split_len, "grid": list(p.grid),
+                         "ms": ms, "share_of_bound": bound_ms / ms,
+                         "chosen": p == chosen})
+        out[variant] = rows
+        emit({"phase": "nn_variant_plan_sweep", "variant": variant,
+              "shape": [m, n], "bound_ms": bound_ms, "bound_by": bound_by,
+              "sms": sms, "plans": rows})
     return out
 
 
@@ -643,6 +715,7 @@ def main() -> int:
     plan_sweep(nn_search)
     res = main_path(nn_search)
     vtiming = variant_kernels(nn_search, nn_variants)
+    variant_plan_sweep(nn_search, nn_variants)
     bench = variant_bench(nn_variants)
     mb, _ = cli_path(nn_search)
     mrvm_vs_plain(mb)

@@ -1,11 +1,14 @@
-"""Times the 1-NN CUDA kernel (K1, K2) of one or more checkouts on one GPU.
+"""Times the 1-NN CUDA kernels of one or more checkouts on one GPU.
 
     python3 scripts/nn_kernel_times.py [ROOT ...]
 
 For each ROOT in the order given (default: this checkout), a fresh Python
-process imports ROOT's ``staticmapping_torch.ops.nn_search``, builds its
-kernel, and times ``_nearest_cuda`` at the main path's two shapes on the
-same seeded inputs, two ways:
+process imports ROOT's ``staticmapping_torch.ops.nn_search`` and
+``nn_variants``, builds their kernels, and times on the same seeded inputs
+``_nearest_cuda`` (K1, K2) at the main path's two shapes and the three
+variant forms (K3 ``nearest_packed``, K4 ``nearest_aug`` packed and not)
+at the variant bench's 16384 x 2048, each through its public function
+with its default launch, three ways:
 - ``ms``: the device time of one whole call (every launch it makes), from
   CUDA events around the replay of a CUDA graph that holds ``reps`` calls,
   so the host's dispatch of the call is not in it;
@@ -28,6 +31,9 @@ import sys
 # (batch, queries, targets) of the main path, as in chip_smoke.MAIN_SHAPES
 SHAPES = {"single": (0, 32768, 4096), "batched": (16, 16384, 8192)}
 REPS = {"single": 50, "batched": 10}
+# queries x targets of the variant bench, as in chip_smoke.VARIANT_SHAPE
+VARIANT_SHAPE = (16384, 2048)
+VARIANT_REPS = 50
 
 
 def eager_ms(fn, reps: int) -> float:
@@ -111,6 +117,21 @@ def child(root: str) -> dict:
                       "ms": graph_ms(call, REPS[entry]),
                       "eager_ms": eager_ms(call, REPS[entry]),
                       "kernels_us": kernels_us(call, REPS[entry])}
+    from staticmapping_torch.ops import nn_variants as nv
+    m, n = VARIANT_SHAPE
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.uniform(-30, 30, (m, 3))
+                         .astype(np.float32)).to(dev)
+    t = torch.from_numpy(rng.uniform(-30, 30, (n, 3))
+                         .astype(np.float32)).to(dev)
+    q8, t8, qa, ta = nv.pad8(q), nv.pad8(t), nv.aug_q(q), nv.aug_t(t)
+    for name, call in (("packed", lambda: nv.nearest_packed(q8, t8, 11)),
+                       ("aug_packed", lambda: nv.nearest_aug(qa, ta, True)),
+                       ("aug", lambda: nv.nearest_aug(qa, ta, False))):
+        out[name] = {"shape": [m, n],
+                     "ms": graph_ms(call, VARIANT_REPS),
+                     "eager_ms": eager_ms(call, VARIANT_REPS),
+                     "kernels_us": kernels_us(call, VARIANT_REPS)}
     return out
 
 

@@ -108,6 +108,27 @@ def _cut(n: int, splits: int) -> Tuple[int, int]:
     return max(1, -(-n // length)), length
 
 
+def split_targets(n: int, blocks: int, block: int, sms: int,
+                  splits: Optional[int] = None,
+                  cap: Optional[int] = None) -> Tuple[int, int]:
+    """``(S, split_len)`` for ``n`` targets behind ``blocks`` blocks of
+    ``block`` threads on ``sms`` SMs.  Unless ``splits`` is given, S grows
+    until the grid holds about WARPS_PER_SM warps per SM, every split
+    holding at least MIN_SPLIT targets and S at most ``cap``."""
+    floor = 1
+    if splits is None:
+        want = WARPS_PER_SM * 32 * sms / (block * max(1, blocks))
+        splits = max(1, min(int(want + 0.5), n // MIN_SPLIT,
+                            n if cap is None else cap))
+        floor = MIN_SPLIT
+    if splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    splits, length = _cut(n, splits)
+    while splits > 1 and n - (splits - 1) * length < floor:
+        splits, length = _cut(n, splits - 1)
+    return splits, length
+
+
 @functools.lru_cache(maxsize=1024)
 def plan(b: int, m: int, n: int, r: Optional[int] = None,
          block: Optional[int] = None, splits: Optional[int] = None,
@@ -123,16 +144,7 @@ def plan(b: int, m: int, n: int, r: Optional[int] = None,
         raise ValueError(f"no kernel instance for r={r}, block={block}; "
                          f"have {sorted(INSTANCES)}")
     tiles = -(-m // (r * block))
-    floor = 1
-    if splits is None:
-        want = WARPS_PER_SM * 32 * sms / (block * max(1, b * tiles))
-        splits = max(1, min(int(want + 0.5), n // MIN_SPLIT))
-        floor = MIN_SPLIT
-    if splits < 1:
-        raise ValueError(f"splits must be >= 1, got {splits}")
-    splits, length = _cut(n, splits)
-    while splits > 1 and n - (splits - 1) * length < floor:
-        splits, length = _cut(n, splits - 1)
+    splits, length = split_targets(n, b * tiles, block, sms, splits)
     return NNPlan(r, block, splits, length, (tiles, splits, b),
                   splits * b * m if splits > 1 else 0)
 

@@ -13,26 +13,28 @@ Two functions of the variant bench, each in two implementations:
   clamps at 0.
 
 A CUDA tensor goes to the hand-written kernel ``csrc/nn_variants.cu`` (see
-its header note); a CPU tensor takes the plain PyTorch version.  Neither
-falls back to the other.  Operands keep the TPU kernels' transposed
-``[8, M]`` / ``[8, N]`` f32 layout (:func:`pad8`, :func:`aug_q`,
-:func:`aug_t` build it from ``[M, 3]`` points).  What the packing loses is
-kept: d is the truncated d², the index is ``col mod 2^idx_bits`` and ties of
-truncated d² go to the lowest low bits.  The packed forms refuse
+its header note) under a launch plan (:func:`plan`); a CPU tensor takes the
+plain PyTorch version.  Neither falls back to the other.  Operands keep the
+TPU kernels' transposed ``[8, M]`` / ``[8, N]`` f32 layout (:func:`pad8`,
+:func:`aug_q`, :func:`aug_t` build it from ``[M, 3]`` points) and are
+finite (padding is 1e6, as everywhere in the port).  What the packing loses
+is kept: d is the truncated d², the index is ``col mod 2^idx_bits`` and
+ties of truncated d² go to the lowest low bits.  The packed forms refuse
 ``N > 2^idx_bits``, where the index would wrap.
 
     python -m staticmapping_torch.ops.nn_variants
 
-runs the bench on the GPU at its shape, 16384 × 2048: each variant over a
-sweep of launch shapes (the TPU kernels swept their query chunk ``qc``,
-which has no meaning here), timed over ``R`` carry-dependent launches with
-CUDA events, then each variant's agreement with the K1 kernel.
+runs the bench on the GPU at its shape, 16384 × 2048: each variant under
+every (R, block) instance's plan (the TPU kernels swept their query chunk
+``qc``, which has no meaning here), timed over ``R`` carry-dependent calls
+replayed from a CUDA graph (``ms``) and issued from Python (``eager_ms``),
+then each variant's agreement with the K1 kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,9 +46,15 @@ from . import nn_search
 ROWS = 8
 # the K4 kernel's packed key holds 11 index bits (bench_nn_variants.py:123)
 AUG_IDX_BITS = 11
-# (queries per block, column groups) of a launch; the first is the default
-BLOCKS = ((64, 4), (128, 2), (128, 4), (256, 1), (32, 8))
 _VARIANT_ID = {"packed": 0, "aug_packed": 1, "aug": 2}
+
+# Compile-time constants and (R, block) instances of csrc/nn_variants.cu.
+GROUP = nn_search.GROUP  # kGroup: targets per running-min group
+PREFETCH = 2             # kPrefetch: targets per thread per shared tile
+INSTANCES = frozenset({(2, 128), (2, 256), (4, 64), (4, 128)})
+MAX_SPLITS = 8           # kMaxSplits: S at most (the merge's unrolled loads)
+# The default (R, block), chosen by chip_smoke.py's nn_variant_plan_sweep.
+DEFAULT_R, DEFAULT_BLOCK = 2, 256
 
 # Launches of the CUDA kernel per variant since the last reset.
 launches: Dict[str, int] = {k: 0 for k in _VARIANT_ID}
@@ -132,21 +140,56 @@ def _plain(variant: str, q8t: torch.Tensor, t8t: torch.Tensor,
 # the CUDA kernel (CUDA tensors)
 # ---------------------------------------------------------------------------
 
+class VariantPlan(NamedTuple):
+    """A launch of ``csrc/nn_variants.cu``.  Split ``s`` covers targets
+    ``[s * split_len, min(n, (s + 1) * split_len))``; with S > 1 a second
+    kernel merges the splits."""
+    r: int                      # queries a thread
+    block: int                  # threads a block
+    splits: int                 # S: target slices, each its own block
+    split_len: int              # targets a slice, a multiple of GROUP
+    grid: Tuple[int, int]       # (query tiles, S)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(m: int, n: int, r: Optional[int] = None,
+         block: Optional[int] = None, splits: Optional[int] = None,
+         sms: int = nn_search.H100_SMS) -> VariantPlan:
+    """The launch for ``m`` queries and ``n`` targets on a card of ``sms``
+    SMs, by the rule of :func:`nn_search.plan`: unless ``splits`` is given,
+    the targets are split until the grid holds about
+    ``nn_search.WARPS_PER_SM`` warps per SM, every split holding at least
+    ``nn_search.MIN_SPLIT`` targets, and S is at most MAX_SPLITS.  ``r``
+    and ``block`` default to the measured best."""
+    r = DEFAULT_R if r is None else r
+    block = DEFAULT_BLOCK if block is None else block
+    if (r, block) not in INSTANCES:
+        raise ValueError(f"no kernel instance for r={r}, block={block}; "
+                         f"have {sorted(INSTANCES)}")
+    if splits is not None and splits > MAX_SPLITS:
+        raise ValueError(f"{splits} splits exceed the {MAX_SPLITS} that the "
+                         "merge kernel reads")
+    tiles = -(-m // (r * block))
+    splits, length = nn_search.split_targets(n, tiles, block, sms, splits,
+                                             MAX_SPLITS)
+    return VariantPlan(r, block, splits, length, (tiles, splits))
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = cuda_build.load("nn_variants").nn_variant_forward
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _cuda(variant: str, q8t: torch.Tensor, t8t: torch.Tensor,
-          idx_bits: int, block: Tuple[int, int]):
+          idx_bits: int, launch: Optional[VariantPlan] = None):
     """Launch ``csrc/nn_variants.cu`` for ``variant`` on ``[8, M]`` /
-    ``[8, N]`` f32 CUDA tensors; counts one launch."""
+    ``[8, N]`` f32 CUDA tensors under ``launch`` (default :func:`plan` for
+    the card's SM count); counts one call, which with S > 1 is two
+    launches, the split kernel and the merge."""
     for name, x in (("query", q8t), ("target", t8t)):
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -156,15 +199,29 @@ def _cuda(variant: str, q8t: torch.Tensor, t8t: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if q8t.device != t8t.device:
         raise ValueError("query and target lie on different devices")
-    qpb, split = block
-    if qpb <= 0 or split <= 0 or qpb * split > 1024:
-        raise ValueError(f"block {block} is not a launchable shape")
     m, n = q8t.shape[1], t8t.shape[1]
+    p = launch or plan(m, n, sms=nn_search._sm_count(q8t.device))
+    if (p.r, p.block) not in INSTANCES:
+        raise ValueError(f"no kernel instance for plan {p}")
+    if not 0 < p.splits <= MAX_SPLITS:
+        raise ValueError(f"plan {p}: S must be in 1..{MAX_SPLITS}, the "
+                         "splits that the merge kernel reads")
+    if (p.grid != (-(-m // (p.r * p.block)), p.splits)
+            or p.split_len % GROUP
+            or not (p.splits - 1) * p.split_len < n <= p.splits * p.split_len):
+        raise ValueError(f"plan {p} does not fit M={m} N={n}")
     d = torch.empty((m,), dtype=torch.float32, device=q8t.device)
     i = torch.empty((m,), dtype=torch.int32, device=q8t.device)
+    part_v = part_i = 0                   # the [S, M] value and idx partials
+    if p.splits > 1:
+        part = torch.empty(2 * p.splits * m, dtype=torch.int32,
+                           device=q8t.device)
+        part_v = part.data_ptr()
+        part_i = part_v + 4 * p.splits * m
     rc = _kernel_fn()(
         _VARIANT_ID[variant], q8t.data_ptr(), t8t.data_ptr(), d.data_ptr(),
-        i.data_ptr(), m, n, idx_bits, qpb, split,
+        i.data_ptr(), part_v, part_i, m, n, idx_bits, p.r, p.block,
+        p.splits, p.split_len,
         torch.cuda.current_stream(q8t.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"nn_variants kernel launch failed: CUDA error "
@@ -174,7 +231,7 @@ def _cuda(variant: str, q8t: torch.Tensor, t8t: torch.Tensor,
 
 
 def _nearest(variant: str, q8t: torch.Tensor, t8t: torch.Tensor,
-             idx_bits: int, block: Tuple[int, int]):
+             idx_bits: int, launch: Optional[VariantPlan]):
     for name, x in (("query", q8t), ("target", t8t)):
         if x.dim() != 2 or x.shape[0] != ROWS:
             raise ValueError(f"{name} must be [{ROWS}, N], got "
@@ -189,27 +246,28 @@ def _nearest(variant: str, q8t: torch.Tensor, t8t: torch.Tensor,
             f"{n} targets do not fit the packed key's {idx_bits} index "
             f"bits: the index would wrap modulo {2**idx_bits}")
     if q8t.is_cuda:
-        return _cuda(variant, q8t, t8t, idx_bits, block)
+        return _cuda(variant, q8t, t8t, idx_bits, launch)
     return _plain(variant, q8t, t8t, idx_bits)
 
 
 def nearest_packed(q8t: torch.Tensor, t8t: torch.Tensor, idx_bits: int = 11,
-                   block: Tuple[int, int] = BLOCKS[0]):
+                   launch: Optional[VariantPlan] = None):
     """K3: 1-NN of ``[8, M]`` queries in ``[8, N]`` targets (:func:`pad8`
-    layout) by the f32 expansion and the packed key.  Returns ``(d [M] f32,
-    i [M] i32)``: d² with its low ``idx_bits`` bits cleared, and the index
-    (``N ≤ 2^idx_bits``).  ``block`` is the CUDA launch shape."""
-    return _nearest("packed", q8t, t8t, idx_bits, block)
+    layout; finite) by the f32 expansion and the packed key.  Returns
+    ``(d [M] f32, i [M] i32)``: d² with its low ``idx_bits`` bits cleared,
+    and the index (``N ≤ 2^idx_bits``).  ``launch`` overrides the CUDA
+    kernel's :func:`plan`."""
+    return _nearest("packed", q8t, t8t, idx_bits, launch)
 
 
 def nearest_aug(qa: torch.Tensor, ta: torch.Tensor, packed: bool,
-                block: Tuple[int, int] = BLOCKS[0]):
+                launch: Optional[VariantPlan] = None):
     """K4: 1-NN of augmented ``[8, M]`` queries (:func:`aug_q`) in augmented
-    ``[8, N]`` targets (:func:`aug_t`), whose contraction is d².
+    ``[8, N]`` targets (:func:`aug_t`; finite), whose contraction is d².
     ``packed=True``: the packed key with 11 index bits (``N ≤ 2048``);
     ``packed=False``: min and first-index argmin, then d clamped at 0."""
     return _nearest("aug_packed" if packed else "aug", qa, ta,
-                    AUG_IDX_BITS, block)
+                    AUG_IDX_BITS, launch)
 
 
 # ---------------------------------------------------------------------------
@@ -220,10 +278,12 @@ R = 50
 
 
 def measure(fn, q: torch.Tensor, t: torch.Tensor, label: str,
-            reps: int = R) -> float:
-    """Mean seconds per call of ``fn(q, t)`` over ``reps`` carry-dependent
+            reps: int = R) -> Dict[str, float]:
+    """Milliseconds per call of ``fn(q, t)`` over ``reps`` carry-dependent
     calls (each call's query is perturbed by the previous result, so none
-    can be skipped), timed with CUDA events after a warm run."""
+    can be skipped), after a warm run: ``ms`` by CUDA events around the
+    replay of a CUDA graph that holds the loop, ``eager_ms`` around the
+    loop issued from Python, the host's dispatch included."""
     def loop():
         acc = torch.zeros((), dtype=torch.float32, device=q.device)
         for _ in range(reps):
@@ -231,22 +291,35 @@ def measure(fn, q: torch.Tensor, t: torch.Tensor, label: str,
             acc = acc + d[0] * 0.0 + 1.0
         return acc
 
-    loop()
+    def timed(run) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        loop()                               # warm: build, allocator
+    torch.cuda.current_stream().wait_stream(side)
+    eager = timed(loop)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        loop()
+    graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    loop()
-    stop.record()
-    torch.cuda.synchronize()
-    dt = start.elapsed_time(stop) / 1e3 / reps
-    print(f"{label:34s}: {dt * 1e6:8.1f} us/call", flush=True)
-    return dt
+    ms = timed(graph.replay)
+    print(f"{label:34s}: {ms * 1e3:8.1f} us/call graph, "
+          f"{eager * 1e3:8.1f} eager", flush=True)
+    return {"ms": ms, "eager_ms": eager}
 
 
 def main() -> dict:
-    """Run the bench on the first GPU; returns ``{label: seconds per call}``
-    and the agreement of each variant with the K1 kernel."""
+    """Run the bench on the first GPU; returns ``{label: {"ms", "eager_ms"}}``
+    per call and the agreement of each variant with the K1 kernel."""
     if not torch.cuda.is_available():
         raise RuntimeError("the NN-variant bench needs a CUDA device")
     dev = torch.device("cuda")
@@ -258,20 +331,22 @@ def main() -> dict:
                         device=dev)
     q8, t8 = pad8(q), pad8(t)
     qa, ta = aug_q(q), aug_t(t)
+    sms = nn_search._sm_count(dev)
     times = {}
 
     times["current (nn_search.cu)"] = measure(
         lambda a, b: nn_search._nearest_cuda(a, b), q, t,
         "current (nn_search.cu)")
     for label, fn, qq, tt in (
-            ("packed", lambda a, b, blk: nearest_packed(a, b, 11, blk), q8, t8),
-            ("aug-matmul", lambda a, b, blk: nearest_aug(a, b, False, blk),
+            ("packed", lambda a, b, p: nearest_packed(a, b, 11, p), q8, t8),
+            ("aug-matmul", lambda a, b, p: nearest_aug(a, b, False, p),
              qa, ta),
             ("aug-matmul packed",
-             lambda a, b, blk: nearest_aug(a, b, True, blk), qa, ta)):
-        for blk in BLOCKS:
-            key = f"{label} block={blk[0]}x{blk[1]}"
-            times[key] = measure(functools.partial(fn, blk=blk), qq, tt, key)
+             lambda a, b, p: nearest_aug(a, b, True, p), qa, ta)):
+        for r, blk in sorted(INSTANCES):
+            p = plan(m, n, r, blk, sms=sms)
+            key = f"{label} r={r} block={blk} S={p.splits}"
+            times[key] = measure(functools.partial(fn, p=p), qq, tt, key)
     mask = torch.ones((n,), dtype=torch.bool, device=dev)
     times["plain scan tile=1024"] = measure(
         lambda a, b: nn_search._nearest_plain(a, b, mask, tile=1024), q, t,
@@ -288,7 +363,7 @@ def main() -> dict:
         agreement[name] = {"idx_agree": agree, "max_d2_err": derr}
         print(f"{name} vs current: idx agree {agree:.5f}, max d2 err "
               f"{derr:.2e}", flush=True)
-    return {"seconds_per_call": times, "agreement": agreement}
+    return {"per_call": times, "agreement": agreement}
 
 
 if __name__ == "__main__":

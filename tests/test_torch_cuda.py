@@ -274,28 +274,37 @@ def _variant_operands(variant, q, t, device):
     return tnv.aug_q(qd), tnv.aug_t(td)
 
 
-def _variant(variant, a, b, block=None):
+def _variant(variant, a, b, launch=None, idx_bits=11):
     from staticmapping_torch.ops import nn_variants as tnv
-    kw = {} if block is None else {"block": block}
     if variant == "packed":
-        return tnv.nearest_packed(a, b, 11, **kw)
-    return tnv.nearest_aug(a, b, variant == "aug_packed", **kw)
+        return tnv.nearest_packed(a, b, idx_bits, launch)
+    return tnv.nearest_aug(a, b, variant == "aug_packed", launch)
+
+
+# (r, block, splits) of the launches held against the plain version: every
+# instance, S = 1 and S > 1 (None: the automatic plan)
+VARIANT_PLANS = [(2, 256, None), (2, 128, 1), (4, 64, 3), (4, 128, 8),
+                 (2, 256, 1), (4, 64, None)]
 
 
 @pytest.mark.parametrize("variant", ["packed", "aug_packed", "aug"])
-@pytest.mark.parametrize("block", [(64, 4), (128, 2), (256, 1), (32, 8)])
-def test_variant_kernel_matches_plain(cuda_device, variant, block):
-    """Ragged M with N = 2048 (the packed key's 11 bits): every launch
-    shape's kernel picks the plain version's target for ≥ 99.9% of
-    queries; d agrees to the expansion's f32 error at 30 m plus one 11-bit
-    truncation step, and the packed d has its low bits clear."""
+@pytest.mark.parametrize("r,block,splits", VARIANT_PLANS)
+def test_variant_kernel_matches_plain(cuda_device, variant, r, block,
+                                      splits):
+    """Ragged M with N = 2048 (the packed key's 11 bits): every plan's
+    kernel picks the plain version's target for ≥ 99.9% of queries; d
+    agrees to the expansion's f32 error at 30 m plus one 11-bit truncation
+    step, and the packed d has its low bits clear."""
     from staticmapping_torch.ops import nn_variants as tnv
     rng = np.random.default_rng(19)
     q = rng.uniform(-30, 30, (3000, 3)).astype(np.float32)
     t = rng.uniform(-30, 30, (2048, 3)).astype(np.float32)
     a, b = _variant_operands(variant, q, t, cuda_device)
+    launch = tnv.plan(3000, 2048, r, block, splits,
+                      sms=tnn._sm_count(cuda_device))
+    assert splits is None or launch.splits == splits
     before = tnv.launches[variant]
-    d_k, i_k = _variant(variant, a, b, block)
+    d_k, i_k = _variant(variant, a, b, launch)
     torch.cuda.synchronize()
     assert tnv.launches[variant] == before + 1
     d_p, i_p = _variant(variant, a.cpu(), b.cpu())
@@ -319,6 +328,88 @@ def test_variant_kernel_ties_go_to_the_lowest_index(cuda_device, variant):
     np.testing.assert_array_equal(i_k.cpu().numpy(), want)
 
 
+def _variant_grid(variant, rows, m, n, span, cuts, rng):
+    """Integer-grid operands (every sum exact in f32) whose queries are
+    zero past ``rows`` (3: the pad8 loop, 5: the aug_q loop, 8: general),
+    with targets c − 1 and c equal at every cut and query k's least d² on
+    such a pair (K3: its own; K4: the one most aligned with it)."""
+    q8 = rng.integers(-span, span + 1, (8, m)).astype(np.float32)
+    t8 = rng.integers(-span, span + 1, (8, n)).astype(np.float32)
+    q8[rows:] = 0
+    for k, c in enumerate(cuts[:m]):
+        # K3: d² = |q − t|² = 0; K4: d² = q·t = −10 |q|², below the rest
+        t8[:, c - 1] = t8[:, c] = q8[:, k] * (1 if variant == "packed"
+                                              else -10)
+    return q8, t8
+
+
+@pytest.mark.parametrize("variant", ["packed", "aug_packed", "aug"])
+@pytest.mark.parametrize("rows", [3, 5, 8])
+@pytest.mark.parametrize("r,block,splits,idx_bits", [
+    (2, 256, 1, 11), (4, 128, 5, 11), (2, 128, 8, 20), (4, 64, 3, 20)])
+def test_variant_kernel_ties_straddle_groups_and_splits(
+        cuda_device, variant, rows, r, block, splits, idx_bits):
+    """Each row loop on integer grids, with exact ties placed on both sides
+    of every split boundary and of group boundaries, and (20 bits) many
+    ties of the truncated value: exactly the plain version's d and index."""
+    from staticmapping_torch.ops import nn_variants as tnv
+    rng = np.random.default_rng(27 + rows)
+    m, n = 700, 2048
+    launch = tnv.plan(m, n, r, block, splits)
+    assert launch.splits == splits
+    cuts = sorted({s * launch.split_len for s in range(1, splits)}
+                  | set(range(tnv.GROUP, n, tnv.GROUP * 25)))
+    q8, t8 = _variant_grid(variant, rows, m, n, 6, cuts, rng)
+    bits = idx_bits if variant == "packed" else tnv.AUG_IDX_BITS
+    d_k, i_k = _variant(variant, torch.from_numpy(q8).to(cuda_device),
+                        torch.from_numpy(t8).to(cuda_device), launch, bits)
+    d_p, i_p = _variant(variant, torch.from_numpy(q8),
+                        torch.from_numpy(t8), None, bits)
+    np.testing.assert_array_equal(i_k.cpu().numpy(), i_p.numpy())
+    np.testing.assert_array_equal(d_k.cpu().numpy().view(np.int32),
+                                  d_p.numpy().view(np.int32))
+    picked = i_k.cpu().numpy()[:len(cuts)]
+    if variant == "packed":         # d² = 0 on its own pair only
+        np.testing.assert_array_equal(picked, np.array(cuts) - 1)
+    elif variant == "aug":          # the lower column of a planted pair
+        assert np.isin(picked, np.array(cuts) - 1).all()
+
+
+@pytest.mark.parametrize("variant", ["packed", "aug_packed", "aug"])
+@pytest.mark.parametrize("m,n,splits", [
+    (1, 1, None), (3, 5, None), (2, 7, 1), (3, 12, 2), (1, 20, 3),
+    (5, 33, 4), (100, 127, 8)])
+def test_variant_kernel_fewer_queries_than_r_and_targets_than_groups(
+        cuda_device, variant, m, n, splits):
+    """M below one block's R × block, and N below S × GROUP (ragged last
+    group, splits of one group), on integer grids: exactly the plain
+    version's picks."""
+    from staticmapping_torch.ops import nn_variants as tnv
+    rng = np.random.default_rng(28)
+    q8, t8 = _variant_grid(variant, 5, m, n, 2, [], rng)
+    launch = tnv.plan(m, n, 4, 128, splits)
+    d_k, i_k = _variant(variant, torch.from_numpy(q8).to(cuda_device),
+                        torch.from_numpy(t8).to(cuda_device), launch)
+    d_p, i_p = _variant(variant, torch.from_numpy(q8), torch.from_numpy(t8))
+    np.testing.assert_array_equal(i_k.cpu().numpy(), i_p.numpy())
+    np.testing.assert_array_equal(d_k.cpu().numpy(), d_p.numpy())
+
+
+@pytest.mark.parametrize("variant", ["packed", "aug_packed", "aug"])
+def test_variant_kernel_general_rows(cuda_device, variant):
+    """Real-valued operands with every row in use (the 8-row loop): the
+    plain version's picks for ≥ 99.9% of queries, d to f32 error."""
+    rng = np.random.default_rng(29)
+    q8 = rng.uniform(-3, 3, (8, 2000)).astype(np.float32)
+    t8 = rng.uniform(-3, 3, (8, 2048)).astype(np.float32)
+    d_k, i_k = _variant(variant, torch.from_numpy(q8).to(cuda_device),
+                        torch.from_numpy(t8).to(cuda_device))
+    d_p, i_p = _variant(variant, torch.from_numpy(q8), torch.from_numpy(t8))
+    assert np.mean(i_k.cpu().numpy() == i_p.numpy()) >= 0.999
+    np.testing.assert_allclose(d_k.cpu().numpy(), d_p.numpy(),
+                               rtol=2.0 ** -12, atol=1e-4)
+
+
 def test_variant_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     from staticmapping_torch.ops import nn_variants as tnv
     q = torch.zeros((8, 64), device=cuda_device)
@@ -328,8 +419,14 @@ def test_variant_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         tnv.nearest_aug(q.double(), q.double(), False)
     with pytest.raises(ValueError, match="contiguous"):
         tnv.nearest_aug(torch.zeros((64, 8), device=cuda_device).T, q, False)
-    with pytest.raises(ValueError, match="launchable"):
-        tnv.nearest_aug(q, q, False, block=(64, 32))
+    p = tnv.plan(64, 64)
+    with pytest.raises(ValueError, match="instance"):
+        tnv.nearest_aug(q, q, False, p._replace(r=3))
+    with pytest.raises(ValueError, match="S must be"):
+        tnv.nearest_aug(q, torch.zeros((8, 4096), device=cuda_device), False,
+                        tnv.VariantPlan(2, 256, 9, 464, (1, 9)))
+    with pytest.raises(ValueError, match="does not fit"):
+        tnv.nearest_aug(q, q, False, tnv.plan(64, 4096))
 
 
 # ---------------------------------------------------------------------------

@@ -167,7 +167,37 @@ def test_packed_forms_refuse_targets_beyond_the_index_bits(variant):
     assert d.shape == (128,) and i.dtype == torch.int32
 
 
+@pytest.mark.parametrize("variant", ["packed", "aug_packed", "aug"])
+def test_plain_matches_tpu_kernel_on_general_rows(bench, variant):
+    """Operands whose rows 3-7 are not zero (the kernel's 8-row loop): the
+    plain version and the TPU kernel body, interpreted, on the same
+    operands.  Indices agree for ≥ 99.9% of queries; d to the f32 error of
+    the contraction at these magnitudes plus one truncation step."""
+    rng = np.random.default_rng(23)
+    m, n = 256, 512
+    q8t = rng.uniform(-3, 3, (8, m)).astype(np.float32)
+    t8t = rng.uniform(-3, 3, (8, n)).astype(np.float32)
+    qt, tt = torch.from_numpy(q8t), torch.from_numpy(t8t)
+    if variant == "packed":
+        body = partial(bench._nn_kernel_packed, 256, n, IDX_BITS)
+        d_t, i_t = tnv.nearest_packed(qt, tt, IDX_BITS)
+    else:
+        packed = variant == "aug_packed"
+        body = partial(bench._nn_kernel_aug, 256, n, packed)
+        d_t, i_t = tnv.nearest_aug(qt, tt, packed)
+    d_k, i_k = _interpret(body, q8t, t8t)
+    d_t, i_t = d_t.numpy(), i_t.numpy()
+    assert np.mean(i_t == i_k) >= 0.999
+    if variant == "aug":
+        assert (d_t == 0).mean() > 0.5          # d² < 0 clamped, as the TPU
+    trunc = 2.0 ** -(23 - IDX_BITS) if variant != "aug" else 0.0
+    same = i_t == i_k
+    np.testing.assert_allclose(d_t[same], d_k[same], rtol=trunc, atol=1e-4)
+
+
 def test_cuda_wrapper_refuses_host_tensors():
     q = torch.zeros((8, 128))
     with pytest.raises(ValueError, match="CUDA"):
-        tnv._cuda("packed", q, q, 11, tnv.BLOCKS[0])
+        tnv._cuda("packed", q, q, 11)
+    with pytest.raises(ValueError, match="CUDA"):
+        tnv._cuda("aug", q, q, 11, tnv.plan(128, 128))
