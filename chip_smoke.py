@@ -7,6 +7,8 @@ compiler per source, all started together), then, one phase after another:
 - ``nn_sweep`` / ``nn_kernel_vs_plain``: the 1-NN kernel (K1, K2) against an
   exact host check and its plain PyTorch version, timed over the whole call
   (split kernel and merge) beside its bound, with the plan it ran;
+- ``nn_backend_shapes``: the 1-NN kernel timed at the back end's shapes
+  (the loop verifier's K2 batch, the GICP gate's K1 call);
 - ``nn_plan_sweep``: a few (R, block, S) plans of the 1-NN kernel at both
   main shapes, each held to the chosen plan's output bit for bit, timed;
 - ``main_path``: the pipelined type-6 ``MapBuilder`` at the JAX package's
@@ -23,7 +25,11 @@ compiler per source, all started together), then, one phase after another:
   the sequential front end and the MRVM static map, checked against the
   ground truth;
 - ``mrvm_vs_plain``: the MRVM's per-scan device reduction on one full-width
-  submap of that run, on the GPU against the CPU.
+  submap of that run, on the GPU against the CPU;
+- ``backend``: ``python -m staticmapping_torch --synthetic square
+  --pipelined`` with the pose-graph back end on (M2DP gate, the batched
+  loop verifier on K2, the GICP gate on K1, the pose-graph solves), checked
+  against the ground truth and the JAX package's run of the same settings.
 Each path's launch counts are set to 0 just before it and read just after.
 Every phase prints one JSON line; the line before the last lists the
 kernels, and the last line is ``{"ok": true, "device": ...}``.  Any failure
@@ -42,8 +48,9 @@ import time
 import numpy as np
 import torch
 
-from scripts.main_path import (CLI_PATH, MAIN_PATH, cli_sequence,
-                               stamp_matched_ate, write_kitti_bins)
+from scripts.main_path import (BACKEND_PATH, CLI_PATH, MAIN_PATH,
+                               cli_sequence, loop_gap, stamp_matched_ate,
+                               write_kitti_bins)
 from scripts.nn_kernel_times import eager_ms as time_ms, graph_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -58,6 +65,15 @@ JAX_ATE_M = 0.6906912932542186
 # the port's CLI must stay within max(2 x this ATE, 0.35 m)
 JAX_CLI_ATE_M = 0.08342290625237175
 JAX_CLI_STATIC_VOXELS = 56286
+# ATE and loop gap of staticmapping_tpu on BACKEND_PATH's scans with the
+# back end off, measured on a CPU by scripts/jax_backend_ate.py
+# --no-backend.  Its run with the back end on did not finish in 3 hours on
+# an 8-core CPU (each loop verification is 18 x 65536 x 8192 points x 40
+# trips there), so the port's back-end run is held to this: its ATE may not
+# exceed the JAX package's without loop closing (tighter than 2 x it), and
+# its loop gap must be under 1 m.
+JAX_FRONTEND_ATE_M = 0.7133562445052214
+JAX_FRONTEND_LOOP_GAP_M = 0.32015412172757185
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -79,13 +95,22 @@ NN_KERNELS = {
 # (entry, batch, queries, targets) of the main path: front-end ICP of a
 # scan against a keyframe target; batched submap-pair ICP
 MAIN_SHAPES = {"single": (0, 32768, 4096), "batched": (16, 16384, 8192)}
+# (entry, batch, queries, targets) of the back end: the loop verifier's
+# 40-trip batch (K2) and the GICP gate's 4x-strided submaps (K1)
+BACKEND_SHAPES = {"batched": (18, 65536, 8192), "single": (0, 16384, 16384)}
 # (label, batch, queries, targets, invalid targets per pair; None = the
-# last sixteenth) of bench.py:101-107
-SWEEP_SHAPES = [("512x4096", 1, 512, 4096, 96), ("128x128", 1, 128, 128, 0),
-                ("1920x2176", 1, 1920, 2176, 0),
-                ("32768x65536", 1, 32768, 65536, 0),
-                ("B2_2048x4096", 2, 2048, 4096, None),
-                ("B2_65536x65536", 2, 65536, 65536, None)]
+# last sixteenth, source hash-thinned) of bench.py:101-107, then the back
+# end's: the loop verifier's batch (3 yaw guesses x 6 candidates, a
+# hash-thinned 65536-slot submap against its 8192-slot leaf-8 normals) and
+# the GICP gate (4x-strided 65536-slot submaps)
+SWEEP_SHAPES = [("512x4096", 1, 512, 4096, 96, False),
+                ("128x128", 1, 128, 128, 0, False),
+                ("1920x2176", 1, 1920, 2176, 0, False),
+                ("32768x65536", 1, 32768, 65536, 0, False),
+                ("B2_2048x4096", 2, 2048, 4096, None, False),
+                ("B2_65536x65536", 2, 65536, 65536, None, False),
+                ("B18_65536x8192_thinned", 18, 65536, 8192, None, True),
+                ("16384x16384", 1, 16384, 16384, 0, False)]
 
 
 VARIANT_SOURCE = "staticmapping_torch/csrc/nn_variants.cu"
@@ -143,27 +168,42 @@ def check_one(q, t, mask, d_k, i_k) -> dict:
             "ok": frac_far <= 1e-3 and d2_ok}
 
 
+def thinned_rows(m: int) -> np.ndarray:
+    """The source slots the loop verifier keeps (``icp_pm._hash_thin`` at
+    its 0.9 probability): only their matches are read."""
+    from staticmapping_torch.data import cloud as cloud_lib
+    from staticmapping_torch.registration.icp_pm import (IcpPointMatcher,
+                                                         _hash_thin)
+    c = cloud_lib.from_numpy(np.zeros((m, 3), np.float32), capacity=m,
+                             device="cpu")
+    return _hash_thin(c, IcpPointMatcher.reading_sample_prob).mask.numpy()
+
+
 def sweep(nn_search) -> None:
-    """Both entries over the six shapes of bench.py:101-107."""
+    """Both entries over the six shapes of bench.py:101-107 and the back
+    end's two."""
     rng = np.random.default_rng(0)
-    for label, b, m, n, n_invalid in SWEEP_SHAPES:
+    for label, b, m, n, n_invalid, thin in SWEEP_SHAPES:
         q = rng.uniform(-20, 20, (b, m, 3)).astype(np.float32)
         t = rng.uniform(-20, 20, (b, n, 3)).astype(np.float32)
         mask = np.ones((b, n), dtype=bool)
         mask[:, n - (n // 16 if n_invalid is None else n_invalid):] = False
+        rows = thinned_rows(m) if thin else np.ones(m, dtype=bool)
         qd, td, md = (torch.from_numpy(x).to(DEV) for x in (q, t, mask))
         results = {}
         # batched entry: all pairs in one launch
         d, i = nn_search.nearest_1(qd, td, md)
         d, i = d.cpu().numpy(), i.cpu().numpy()
-        results["batched"] = [check_one(q[k], t[k], mask[k], d[k], i[k])
+        results["batched"] = [check_one(q[k][rows], t[k], mask[k],
+                                        d[k][rows], i[k][rows])
                               for k in range(b)]
         # single entry: one launch per pair
         results["single"] = []
         for k in range(b):
             d, i = nn_search.nearest_1(qd[k], td[k], md[k])
             results["single"].append(check_one(
-                q[k], t[k], mask[k], d.cpu().numpy(), i.cpu().numpy()))
+                q[k][rows], t[k], mask[k], d.cpu().numpy()[rows],
+                i.cpu().numpy()[rows]))
         torch.cuda.synchronize()
         ok = all(r["ok"] for rs in results.values() for r in rs)
         emit({"phase": "nn_sweep", "shape": label, "ok": ok,
@@ -237,6 +277,27 @@ def kernel_vs_plain(nn_search) -> dict:
                       "plan": plan._asdict()}
         emit({"phase": "nn_kernel_vs_plain", "entry": entry, **out[entry]})
         del q, t, mask, tgt, d_k, i_k, d_p, i_p
+        torch.cuda.empty_cache()
+    return out
+
+
+def backend_kernel_times(nn_search) -> dict:
+    """Each entry at the back end's shape, timed over the whole call by
+    CUDA-graph replay beside its bound (the exact check is ``nn_sweep``'s)."""
+    rng = np.random.default_rng(4)
+    out = {}
+    for entry, (b, m, n) in BACKEND_SHAPES.items():
+        q, _, _, tgt = main_shape_inputs(nn_search, rng, b, m, n)
+        ms = graph_ms(lambda: nn_search._nearest_cuda(q, tgt),
+                      10 if b else 50)
+        bound_ms, bound_by = nn_bound(b, m, n)
+        out[entry] = {"shape": [b, m, n], "ms": ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                      "plan": nn_search.plan(max(b, 1), m, n,
+                                             sms=nn_search._sm_count(DEV))
+                      ._asdict()}
+        emit({"phase": "nn_backend_shapes", "entry": entry, **out[entry]})
+        del q, tgt
         torch.cuda.empty_cache()
     return out
 
@@ -684,6 +745,117 @@ def mrvm_vs_plain(mb) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the back-end path
+# ---------------------------------------------------------------------------
+
+# prof blocks of the back end: the loop verifier, the GICP gate, the
+# pose-graph solves, the M2DP descriptors and their match
+BACKEND_STAGES = ("LoopVerifier", "LoopGicpGate", "PoseGraphSolve",
+                  "M2dpDescriptor", "LoopM2dpMatch")
+
+
+def backend_path(nn_search) -> dict:
+    """``python -m staticmapping_torch --synthetic square --scans 0`` on the
+    GPU through its entry point, with the back end on (no
+    ``--no-backend``): config/synthetic.xml, seed 7, all 92 poses, the
+    default widths, the front end ``BACKEND_PATH`` names."""
+    from staticmapping_torch import __main__ as cli
+    from staticmapping_torch.backend.loop_detector import LoopDetector
+    from staticmapping_torch.common import prof
+    from staticmapping_torch.io import kitti
+    from staticmapping_torch.registration import icp_fast
+
+    B = BACKEND_PATH
+    out = os.path.join(ROOT, "chiprun_out", "chip_smoke_backend")
+    shutil.rmtree(out, ignore_errors=True)
+    args = cli.make_parser().parse_args(
+        ["--synthetic", B["trajectory"], "--scans", str(B["n_scans"]),
+         "--out", out, "--device", "cuda", "--quiet"]
+        + (["--pipelined", "--chunk", str(B["chunk"])] if B["pipelined"]
+           else []))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nn_search.reset_launches()
+    icp_fast.reset_trips()
+    prof.reset()
+    prof.enable(report_at_exit=False)
+    # the batched launches made inside the loop verifier (the pair matches
+    # of the chunked front end use the batched entry too)
+    close_loops = LoopDetector._close_loops
+    verifier = {"batched": 0}
+
+    def counted(self, pairs):
+        before = nn_search.launches["batched"]
+        try:
+            return close_loops(self, pairs)
+        finally:
+            verifier["batched"] += nn_search.launches["batched"] - before
+    LoopDetector._close_loops = counted
+    t0 = time.perf_counter()
+    try:
+        mb = cli.run(args)
+        torch.cuda.synchronize()
+    finally:
+        LoopDetector._close_loops = close_loops
+    total = time.perf_counter() - t0
+    prof.disable()
+    launches = dict(nn_search.launches)
+    stages = prof.stats()
+
+    be = mb.backend
+    period = 1.0 / B["rate"]
+    gt = list(kitti.read_poses(os.path.join(out, "gt_pose.txt")))
+    frames = [(f.stamp, f.global_pose) for s in mb.trajectory
+              for f in s.frames]
+    ate = stamp_matched_ate(frames, gt, period, kitti.ate_rmse)
+    gap = loop_gap([s.global_pose for s in mb.trajectory],
+                   [s.stamp for s in mb.trajectory], gt, period)
+    poses = kitti.read_poses(os.path.join(out, "kitti_pose.txt"))
+    finish_s = stages["Finish"]["sum"]
+    bound = JAX_FRONTEND_ATE_M
+    edges = [(int(i), int(j)) for i, j in zip(be.graph.factors.i,
+                                              be.graph.factors.j)
+             if j != i + 1]
+    res = {
+        "phase": "backend", "n_scans": len(gt),
+        "scans_per_s": len(gt) / (total - finish_s),
+        "total_s": total, "finish_s": finish_s,
+        "save_maps_s": stages["SaveMaps"]["sum"],
+        "keyframes": len(frames), "submaps": len(mb.trajectory),
+        "ate_m": ate, "ate_bound_m": bound,
+        "jax_frontend_ate_m": JAX_FRONTEND_ATE_M,
+        "loop_edge_count": be.loop_edge_count, "loop_edges": edges,
+        "use_descriptor": be.loop_detector.settings.use_descriptor,
+        "loop_gap_m": gap,
+        "jax_frontend_loop_gap_m": JAX_FRONTEND_LOOP_GAP_M,
+        "pipelined": B["pipelined"], "launches": launches,
+        "verifier_launches": verifier, "icp_trips": icp_fast.trip_counts(),
+        "backend_s": {k: stages[k]["sum"] if k in stages else 0.0
+                      for k in BACKEND_STAGES},
+        "backend_counts": {k: stages[k]["count"] if k in stages else 0
+                           for k in BACKEND_STAGES},
+        "stages_ms": {k: {"count": v["count"], "sum_ms": 1e3 * v["sum"],
+                          "avg_ms": 1e3 * v["avg"]}
+                      for k, v in stages.items()},
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(res)
+    if be.loop_edge_count <= 0:
+        raise AssertionError("the back-end path closed no loop")
+    if verifier["batched"] <= 0:
+        raise AssertionError("the loop verifier never launched the batched "
+                             "nn kernel")
+    if len(poses) != len(mb.trajectory) or not np.isfinite(poses).all():
+        raise AssertionError("kitti_pose.txt does not hold finite submap "
+                             "poses")
+    if not gap < 1.0:
+        raise AssertionError(f"loop gap {gap} m is not below 1 m")
+    if not ate <= bound:
+        raise AssertionError(f"back-end ATE {ate} m exceeds {bound} m")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -712,6 +884,7 @@ def main() -> int:
 
     sweep(nn_search)
     timing = kernel_vs_plain(nn_search)
+    backend_kernel_times(nn_search)
     plan_sweep(nn_search)
     res = main_path(nn_search)
     vtiming = variant_kernels(nn_search, nn_variants)
@@ -719,6 +892,7 @@ def main() -> int:
     bench = variant_bench(nn_variants)
     mb, _ = cli_path(nn_search)
     mrvm_vs_plain(mb)
+    backend = backend_path(nn_search)
 
     def entry(meta, source, launches, t):
         return {"name": meta["name"], "route": "cuda", "source": source,
@@ -727,8 +901,10 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
+    # K1 and K2 launch on the main path and on the back-end path
     emit({"kernels": [
-        entry(meta, NN_SOURCE, res["launches"][k], timing[k])
+        entry(meta, NN_SOURCE,
+              res["launches"][k] + backend["launches"][k], timing[k])
         for k, meta in NN_KERNELS.items()] + [
         entry(meta, VARIANT_SOURCE, bench["launches"][k], vtiming[k])
         for k, meta in VARIANT_KERNELS.items()]})

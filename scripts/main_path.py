@@ -1,7 +1,8 @@
-"""Settings of the port's main path and of its CLI path, shared by
-``chip_smoke.py`` (the port on the GPU), ``scripts/profile_main_path.py`` and
-the JAX references ``scripts/jax_main_path_ate.py`` and
-``scripts/jax_cli_ate.py``.  Plain Python and numpy: importing it loads
+"""Settings of the port's main path, its CLI path and its back-end path,
+shared by ``chip_smoke.py`` (the port on the GPU),
+``scripts/profile_main_path.py`` and the JAX references
+``scripts/jax_main_path_ate.py``, ``scripts/jax_cli_ate.py`` and
+``scripts/jax_backend_ate.py``.  Plain Python and numpy: importing it loads
 neither torch nor JAX."""
 from __future__ import annotations
 
@@ -44,6 +45,54 @@ CLI_PATH = {
     "n_scans": 64, "cfg": os.path.join("config", "lidar_only_kitti.xml"),
     "rate": 10.0,
 }
+
+
+# The back-end path: `python -m <package> --synthetic square --scans 0
+# --pipelined` without --no-backend: the chunked front end (as
+# bench.py::eval_run's square row runs it), loop closing with the M2DP gate,
+# the batched loop verifier and the GICP gate, and the pose-graph solves, at
+# config/synthetic.xml's settings and the default widths (scan capacity
+# 32768, submap capacity 65536, leaf 8).  The CLI draws the synthetic world
+# with seed 7; the square loop has 92 poses.  The sequential front end
+# jumps 4.8 m at scans 77-78 of this world, after which the loop cannot
+# close.
+BACKEND_PATH = {
+    "trajectory": "square", "seed": 7, "n_scans": 0, "rate": 10.0,
+    "cfg": os.path.join("config", "synthetic.xml"),
+    # the CLI's --pipelined: the chunked front end, 16 scans a chunk, pair
+    # matches in batches of 16
+    "pipelined": True, "chunk": 16,
+}
+
+
+def backend_sequence(make_sequence):
+    """The back-end path's scans and ground-truth poses, as the CLI makes
+    them."""
+    B = BACKEND_PATH
+    return make_sequence(n_scans=B["n_scans"], trajectory=B["trajectory"],
+                         seed=B["seed"])
+
+
+def loop_gap(submap_poses, frame_stamps, gt_poses, period: float) -> float:
+    """``|est_gap − gt_gap|``: how far the estimated distance between the
+    first and the last submap is from the true distance between the scans
+    they start at (matched by stamp).  A loop that the back end closed
+    brings it near 0."""
+    est_gap = np.linalg.norm(submap_poses[-1][:3, 3] - submap_poses[0][:3, 3])
+    g0 = gt_poses[int(round(frame_stamps[0] / period))]
+    g1 = gt_poses[int(round(frame_stamps[-1] / period))]
+    return float(abs(est_gap - np.linalg.norm(g1[:3, 3] - g0[:3, 3])))
+
+
+def keyframe_errors(frames, gt_poses, period: float):
+    """``[(stamp, |t_est − t_gt| m, ICP score)]`` of keyframes ``(stamp,
+    pose, score)`` against the ground truth of their scans (relative to
+    the first), matched by stamp: where a front end jumps."""
+    rel_gt = [np.linalg.solve(gt_poses[0], g) for g in gt_poses]
+    return [(round(float(st), 3),
+             float(np.linalg.norm(T[:3, 3]
+                                  - rel_gt[int(round(st / period))][:3, 3])),
+             float(score)) for st, T, score in frames]
 
 
 def write_kitti_bins(directory: str, scans) -> None:

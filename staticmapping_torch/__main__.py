@@ -4,16 +4,17 @@ ros_node/static_mapping_node.cpp:92-455, without ROS): run a whole dataset
 through the pipeline and write every output.
 
     python -m staticmapping_torch --cfg config/lidar_only_kitti.xml \\
-        --kitti /data/kitti/00/velodyne --out out/ --no-backend
+        --kitti /data/kitti/00/velodyne --out out/
     python -m staticmapping_torch --synthetic square --scans 0 --out out/ \\
-        --no-backend --device cpu
+        --device cpu
 
 Inputs: a KITTI velodyne ``.bin`` directory (KittiReader,
 ros_node/kitti_reader.cc:87-121) or the built-in synthetic world.  Outputs
 (SaveMaps, map_builder.cc:825-911): ``kitti_pose.txt``, ``path.csv``,
 ``static_map.pcd``, ``whole_map.pcd``, and ``gt_pose.txt`` for the synthetic
-world.  The pose-graph back end is not ported yet, so ``--no-backend`` is
-required.  Work runs on ``--device`` (``cuda`` by default).
+world.  The pose-graph back end (loop closing and optimization) is on
+unless ``--no-backend`` is given.  Work runs on ``--device`` (``cuda`` by
+default).
 """
 from __future__ import annotations
 
@@ -44,8 +45,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None, help="output directory "
                    "(overrides whole_options.export_file_path)")
     p.add_argument("--no-backend", action="store_true",
-                   help="front-end odometry only (no loop closing/opt); "
-                        "required until the back end is ported")
+                   help="front-end odometry only (no loop closing/opt)")
     p.add_argument("--pipelined", action="store_true",
                    help="chunked device-resident front end (one chunk of "
                         "scans at a time)")

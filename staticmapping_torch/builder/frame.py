@@ -125,9 +125,14 @@ class Submap:
         self.frames: List[Frame] = []
         self.global_pose: np.ndarray = np.eye(4)   # pose of first frame
         self._cloud: Optional[PointCloud] = None   # merged, submap-local
+        self.descriptor: Optional[np.ndarray] = None   # M2DP (back end)
         self.match_transform_to_next: Optional[np.ndarray] = None
         self.match_score_to_previous: float = 1.0
         self.stamp: float = 0.0
+        # sensor tags interpolated at the submap stamp
+        # (SetRelatedGpsInENU / SetRelatedOdom, map_builder.cc:690-701)
+        self.related_gps_enu: Optional[np.ndarray] = None   # [3]
+        self.related_odom: Optional[np.ndarray] = None      # [4, 4]
         self.save_dir = save_dir
         self.inactive_time: float = 0.0
         self._on_disk = False
@@ -271,6 +276,12 @@ class Submap:
     def install_merged_cloud(self, pc: PointCloud) -> None:
         """Install the batch-merged cloud (deferred-merge path)."""
         self._cloud = pc
+
+    def update_inner_frame_poses(self) -> None:
+        """Submap::UpdateInnerFramePose (submap.cc:268-274): after the
+        pose graph moved the submap, its frames follow."""
+        for f in self.frames:
+            f.global_pose = self.global_pose @ f.local_pose
 
 
 class MemoryManager:

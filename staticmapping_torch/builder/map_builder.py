@@ -1,17 +1,19 @@
 """MapBuilder — the orchestrator; the PyTorch counterpart of
-``staticmapping_tpu.builder.map_builder`` without the back end (reference:
+``staticmapping_tpu.builder.map_builder`` (reference:
 builder/map_builder.h:122-276).
 
 It owns the front end (the sequential ``FrontEnd`` by default, or the
-chunked ``DeviceFrontEnd`` with ``pipelined=True``), the submap builder and
-the trajectory.  Keyframes go into submaps; full submaps are merged, given
-target normals and registered onto their predecessors, one at a time or in
-batches of ``pair_match_batch`` (the reference's SubmapPairMatch queue,
-map_builder.cc:399-446).  ``finish`` writes ``kitti_pose.txt``,
-``path.csv``, the MRVM static map and the direct combined map.
+chunked ``DeviceFrontEnd`` with ``pipelined=True``), the submap builder, the
+trajectory and, when one is attached, the pose-graph back end.  Keyframes go
+into submaps; full submaps are merged, given target normals and registered
+onto their predecessors, one at a time or in batches of ``pair_match_batch``
+(the reference's SubmapPairMatch queue, map_builder.cc:399-446), and then
+handed to the back end in submap order.  ``finish`` runs the final
+optimization and writes ``kitti_pose.txt``, ``path.csv``, the MRVM static
+map and the direct combined map.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than skipped:
-a pose-graph back end and the map package (``save_map_package``).
+the map package (``save_map_package``).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from ..common import np_se3, prof
 from ..data import cloud as cloud_lib
 from ..data.cloud import NormalCloud, PointCloud
 from ..data.data_collector import (DataCollector, DataCollectorOptions,
-                                   ImuMsg)
+                                   ImuMsg, NavSatFixMsg, OdomMsg)
 from ..io import kitti as kitti_io
 from ..io import pcd as pcd_io
 from ..registration.icp_fast import align_point_to_plane
@@ -87,8 +89,7 @@ class MapBuilderOptions:
     data_collector: DataCollectorOptions = dataclasses.field(
         default_factory=DataCollectorOptions)
     use_imu: bool = False
-    # GPS and odometry inputs feed the pose-graph back end (not ported yet,
-    # ROADMAP.md queue A item 14); config.py fills them
+    # GPS and odometry inputs feed the pose-graph back end
     use_gps: bool = False
     use_odom: bool = False
     export_file_path: str = "./"
@@ -127,32 +128,27 @@ class MapBuilderOptions:
     score_spacing_ref: float = 0.0
 
 
-def _refuse_unported(options: MapBuilderOptions, backend) -> None:
+def _refuse_unported(options: MapBuilderOptions) -> None:
     """Raise for every option whose code is not ported yet."""
-    gates = [
-        (backend is not None,
-         "a pose-graph back end: ROADMAP.md queue A item 14"),
-        (options.save_map_package,
-         "save_map_package=True: the map package is ROADMAP.md queue A "
-         "item 17"),
-    ]
-    for refused, what in gates:
-        if refused:
-            raise NotImplementedError(
-                f"staticmapping_torch does not support {what}")
+    if options.save_map_package:
+        raise NotImplementedError(
+            "staticmapping_torch does not support save_map_package=True: "
+            "the map package is ROADMAP.md queue A item 17")
 
 
 class MapBuilder:
     """Feed scans with :meth:`insert_pointcloud`, then call :meth:`finish`.
 
     ``device`` is where clouds and the front-end state live: the GPU unless
-    the caller names another device."""
+    the caller names another device.  ``backend`` is an attached pose-graph
+    optimizer (``backend.optimizer.IncrementalOptimizer``) or None."""
 
     def __init__(self, options: MapBuilderOptions = None,
                  filter_chain: Optional[Callable] = None,
                  backend=None, device=None):
         self.options = options or MapBuilderOptions()
-        _refuse_unported(self.options, backend)
+        _refuse_unported(self.options)
+        self.backend = backend
         self.device = resolve_device(device)
         if self.options.pipelined:
             # gyro samples ride with each chunk and drive the rotation
@@ -189,7 +185,58 @@ class MapBuilder:
         self.tracking_to_imu = np.eye(4)
         self.tracking_to_odom = np.eye(4)
         self.tracking_to_gps = np.eye(4)
+        # live visualization observers (SetShow{Map,Submap,Path,Edge}
+        # Function, map_builder.h:139-162)
+        self._show_map_fn = None
+        self._show_submap_fn = None
+        self._show_path_fn = None
+        self._show_edge_fn = None
+        self.show_map_every = 10      # submaps between whole-map callbacks
 
+    # ----------------------------------------------- observer callbacks --
+    # SetShow*Function (map_builder.h:139-162).  Callbacks fire on the host
+    # after each completed submap reaches the back end (the reference fires
+    # them from the ConnectAllSubmap daemon, map_builder.cc:495-557).
+    def set_show_map_function(self, fn) -> None:
+        """fn(points [N, 4]) — the current optimized map, every
+        ``show_map_every`` submaps and at finish."""
+        self._show_map_fn = fn
+
+    def set_show_submap_function(self, fn) -> None:
+        """fn(points [N, 4]) — the newest submap cloud (submap frame)."""
+        self._show_submap_fn = fn
+
+    def set_show_path_function(self, fn) -> None:
+        """fn(poses: List[np [4, 4]]) — the current submap poses."""
+        self._show_path_fn = fn
+
+    def set_show_edge_function(self, fn) -> None:
+        """fn(edges: List[(i, j)]) — the current pose-graph edges."""
+        self._show_edge_fn = fn
+
+    def _notify_observers(self, submap, final: bool = False) -> None:
+        if (self._show_submap_fn is not None and submap is not None
+                and submap.cloud is not None):
+            self._show_submap_fn(cloud_lib.to_numpy(submap.cloud))
+        if self._show_path_fn is not None:
+            self._show_path_fn([s.global_pose for s in self.trajectory])
+        if self._show_edge_fn is not None:
+            edges = []
+            if self.backend is not None:
+                edges = [(a, b) for a, lst
+                         in self.backend.view_graph.edges.items()
+                         for b, _ in lst]
+            self._show_edge_fn(edges)
+        if self._show_map_fn is not None and (
+                final or len(self.trajectory) % self.show_map_every == 0):
+            parts = [cloud_lib.to_numpy(s.cloud.transform(torch.as_tensor(
+                         s.global_pose.astype(np.float32),
+                         device=s.cloud.device)))
+                     for s in self.trajectory if s.cloud is not None]
+            if parts:
+                self._show_map_fn(np.vstack(parts))
+
+    # ------------------------------------------------- extrinsic setters --
     def set_tracking_to_lidar(self, T: np.ndarray):
         self.tracking_to_lidar = np.asarray(T, dtype=np.float64)
 
@@ -198,9 +245,16 @@ class MapBuilder:
 
     def set_tracking_to_odom(self, T: np.ndarray):
         self.tracking_to_odom = np.asarray(T, dtype=np.float64)
+        if self.backend is not None:
+            # tf_odom_lidar = tracking_to_odom⁻¹ · tracking_to_lidar
+            self.backend.set_transform_odom_to_lidar(
+                np_se3.inverse(self.tracking_to_odom)
+                @ self.tracking_to_lidar)
 
     def set_tracking_to_gps(self, T: np.ndarray):
         self.tracking_to_gps = np.asarray(T, dtype=np.float64)
+        if self.backend is not None:
+            self.backend.set_transform_tracking_to_gps(self.tracking_to_gps)
 
     # ------------------------------------------------------------------
     def insert_pointcloud(self, stamp: float, points: np.ndarray) -> None:
@@ -236,6 +290,18 @@ class MapBuilder:
         else:
             self.front_end.extrapolator.add_imu_data(ImuData(stamp, w, a))
 
+    def insert_odom(self, stamp: float, pose: np.ndarray) -> None:
+        """InsertOdomMsg (map_builder.cc:194-205), for INS-RTK-class
+        odometry; only the pose is used."""
+        if self.options.use_odom:
+            self.data_collector.add_odom(OdomMsg(stamp, np.asarray(pose)))
+
+    def insert_gps(self, stamp: float, latitude: float, longitude: float,
+                   altitude: float, status: int = 0) -> None:
+        """InsertGpsMsg (map_builder.cc:206-211)."""
+        if self.options.use_gps:
+            self.data_collector.add_gps(NavSatFixMsg(
+                stamp, latitude, longitude, altitude, status))
 
     def _insert_frame(self, frame: Frame) -> None:
         """InsertFrameForSubmap + the SubmapProcessing merge step
@@ -262,12 +328,27 @@ class MapBuilder:
         submap.insert_frame(frame)
         if not submap.full:
             return
+        # sensor tags at the submap stamp (map_builder.cc:690-701)
+        if opts.use_gps:
+            submap.related_gps_enu = self.data_collector.interpolate_gps(
+                submap.stamp, 0.001, trim_data=True)
+        if opts.use_odom:
+            submap.related_odom = self.data_collector.interpolate_odom(
+                submap.stamp, 0.001, trim_data=True)
         if opts.pair_match_batch > 1:
             self._pending_submaps.append(submap)
             if len(self._pending_submaps) >= opts.pair_match_batch:
                 self._flush_pair_matches()
-        elif opts.enable_submap_pair_match and submap.id > 0:
+            return
+        if opts.enable_submap_pair_match and submap.id > 0:
             self._submap_pair_match(submap.id, submap.id - 1)
+        self._to_backend(submap)
+
+    def _to_backend(self, submap: Submap) -> None:
+        """Hand a matched submap to the back end, then the observers."""
+        if self.backend is not None:
+            self.backend.add_submap(self.trajectory, submap)
+        self._notify_observers(submap)
 
     def _flush_pair_matches(self, drain: bool = False) -> None:
         """Resolve the deferred pair-match queue (SubmapPairMatch,
@@ -283,7 +364,7 @@ class MapBuilder:
             opts = self.options
             pairs = [s for s in queued
                      if opts.enable_submap_pair_match and s.id > 0]
-            record = ([], [], None, None)
+            record = (queued, [], [], None, None)
             with prof.block("SubmapPairMatchBatch"):
                 self._batch_finalize(queued)
                 if pairs:
@@ -310,7 +391,7 @@ class MapBuilder:
                         n_iters=opts.pair_match_fixed_iterations,
                         tile=opts.front_end.nn_tile,
                         score_spacing_ref=opts.score_spacing_ref)
-                    record = (pairs, guesses, Ts_d, scores_d)
+                    record = (queued, pairs, guesses, Ts_d, scores_d)
             self._pair_results_inflight.append(record)
         # one record stays in flight during the insert loop
         keep = 0 if drain else 1
@@ -343,15 +424,19 @@ class MapBuilder:
             s.install_merged_cloud(pc)
 
     def _consume_pair_results(self) -> None:
-        """Read back the oldest matched batch in one transfer and store each
-        pair's transform on its target submap (order preserved)."""
-        pairs, guesses, Ts_d, scores_d = self._pair_results_inflight.pop(0)
+        """Read back the oldest matched batch, store each pair's transform
+        on its target submap, then hand the batch's submaps to the back end
+        in submap order."""
+        queued, pairs, guesses, Ts_d, scores_d = \
+            self._pair_results_inflight.pop(0)
         if pairs:
             Ts = Ts_d.cpu().double().numpy()
             scores = scores_d.cpu().double().numpy()
             for k, s in enumerate(pairs):
                 self._store_pair_result(s, self.trajectory[s.id - 1],
                                         Ts[k], float(scores[k]), guesses[k])
+        for s in queued:
+            self._to_backend(s)
 
     def _store_pair_result(self, source: Submap, target: Submap,
                            T: np.ndarray, score: float,
@@ -391,8 +476,9 @@ class MapBuilder:
     # ------------------------------------------------------------------
     def finish(self) -> None:
         """FinishAllComputations (map_builder.cc:715-746): flush the front
-        end and the pair queue, then write the outputs (SaveMaps
-        cc:825-911).  Stops the chunked front end's stage thread."""
+        end and the pair queue, run the final optimization, then write the
+        outputs (SaveMaps cc:825-911).  Stops the chunked front end's stage
+        thread."""
         with prof.block("Finish"):
             self._finish()
 
@@ -402,6 +488,11 @@ class MapBuilder:
                 self._insert_frame(f)
             self.front_end.close()
         self._flush_pair_matches(drain=True)
+        if self.backend is not None:
+            self.backend.run_final_optimization(self.trajectory)
+            for s in self.trajectory:
+                s.update_inner_frame_poses()
+            self._calculate_coord_transform_to_gps()
 
         out_dir = self.options.export_file_path
         os.makedirs(out_dir, exist_ok=True)
@@ -411,6 +502,23 @@ class MapBuilder:
         self._output_path_files(out_dir)
         if self.options.output_mrvm or self.options.output_direct_combined_map:
             self._save_maps(out_dir)
+        if (self.backend is not None
+                and self.backend.options.output_graph_pic):
+            self.backend.save_view_graph(out_dir)
+        self._notify_observers(None, final=True)
+
+    def _calculate_coord_transform_to_gps(self) -> None:
+        """CalculateCoordTransformToGps (map_builder.cc:748-762): rotate the
+        whole map into the ENU frame."""
+        if not self.options.use_gps:
+            return
+        T = self.backend.get_gps_coord_transform()
+        if np.allclose(T, np.eye(4)):
+            return
+        for submap in self.trajectory:
+            submap.global_pose = np_se3.normalize_rotation(
+                T @ submap.global_pose)
+            submap.update_inner_frame_poses()
 
     def _output_path_files(self, out_dir: str) -> None:
         """OutputPath (map_builder.cc:615-642): path.csv with stamp,
@@ -423,6 +531,17 @@ class MapBuilder:
         if rows:
             np.savetxt(os.path.join(out_dir, "path.csv"), np.asarray(rows),
                        header="stamp x y z qw qx qy qz", comments="# ")
+        # raw sensor paths (RawGpsDataToFile / RawOdomDataToFile,
+        # data_collector.cc:58-71)
+        gps_path = self.data_collector.raw_gps_path()
+        if gps_path.size:
+            pcd_io.write_pcd(os.path.join(out_dir, "original_gps.pcd"),
+                             gps_path)
+        odom_path = self.data_collector.raw_odom_path()
+        if odom_path.size:
+            pcd_io.write_pcd(os.path.join(out_dir, "original_odom.pcd"),
+                             np.column_stack([odom_path,
+                                              np.zeros(len(odom_path))]))
 
     def _write_static(self, path: str, mrvm: MultiResolutionVoxelMap
                       ) -> None:

@@ -68,10 +68,14 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
 def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
     """Rotation matrix ``[..., 3, 3]`` → quaternion, branch-free (batched
     Shepperd's method: all four candidates, pick the largest diagonal
-    combination)."""
-    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
-    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
-    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    combination).  Entries are taken as ``[..., 1]`` slices, not 0-d
+    tensors: under ``torch.func.jacfwd`` a Python float times a 0-d tensor
+    gives a float64 tangent."""
+    def e(i, j):
+        return m[..., i, j:j + 1]
+    m00, m01, m02 = e(0, 0), e(0, 1), e(0, 2)
+    m10, m11, m12 = e(1, 0), e(1, 1), e(1, 2)
+    m20, m21, m22 = e(2, 0), e(2, 1), e(2, 2)
 
     qw2 = 1.0 + m00 + m11 + m22
     qx2 = 1.0 + m00 - m11 - m22
@@ -82,19 +86,19 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(x.clamp_min(_EPS))
 
     sw = safe_sqrt(qw2) * 2.0
-    cand_w = torch.stack(
+    cand_w = torch.cat(
         [0.25 * sw, (m21 - m12) / sw, (m02 - m20) / sw, (m10 - m01) / sw], -1)
     sx = safe_sqrt(qx2) * 2.0
-    cand_x = torch.stack(
+    cand_x = torch.cat(
         [(m21 - m12) / sx, 0.25 * sx, (m01 + m10) / sx, (m02 + m20) / sx], -1)
     sy = safe_sqrt(qy2) * 2.0
-    cand_y = torch.stack(
+    cand_y = torch.cat(
         [(m02 - m20) / sy, (m01 + m10) / sy, 0.25 * sy, (m12 + m21) / sy], -1)
     sz = safe_sqrt(qz2) * 2.0
-    cand_z = torch.stack(
+    cand_z = torch.cat(
         [(m10 - m01) / sz, (m02 + m20) / sz, (m12 + m21) / sz, 0.25 * sz], -1)
 
-    scores = torch.stack([qw2, qx2, qy2, qz2], dim=-1)
+    scores = torch.cat([qw2, qx2, qy2, qz2], dim=-1)
     idx = torch.argmax(scores, dim=-1)
     cands = torch.stack([cand_w, cand_x, cand_y, cand_z], dim=-2)
     gather_idx = idx[..., None, None].expand(idx.shape + (1, 4))
@@ -129,7 +133,10 @@ def slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
 
 def _theta_safe(sq: torch.Tensor):
     """(small-mask, safe-theta): below theta = 0.1 the f32 quotient forms
-    lose digits, so callers switch to 3-term series there."""
+    lose digits, so callers switch to 3-term series there.  The double
+    ``where`` (the square root never sees the small ``sq``, and the series
+    branch never divides) keeps the autodiff tangents finite at theta = 0
+    too: a NaN in the branch not taken would still poison the gradient."""
     small = sq < 1e-2
     theta = torch.sqrt(torch.where(small, torch.ones_like(sq), sq))
     return small, theta
@@ -154,6 +161,23 @@ def axis_angle_to_matrix(w: torch.Tensor) -> torch.Tensor:
     S = skew(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(S.shape)
     return eye + a * S + b * (S @ S)
+
+
+def matrix_to_axis_angle(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix → rotation vector, through the quaternion."""
+    q = matrix_to_quat(R)
+    w = q[..., :1]
+    v = q[..., 1:]
+    sq = torch.sum(v * v, dim=-1, keepdim=True)
+    small, n = _theta_safe(sq)
+    # angle/|v| = 2·atan2(|v|, w)/|v|; for small |v| the atan series
+    # 2/w · (1 − x²/3 + x⁴/5), x = |v|/w  (w ≥ 0.995 inside the guard)
+    ws = torch.clamp_min(w, 0.5)
+    x2 = sq / (ws * ws)
+    scale = torch.where(small,
+                        (2.0 / ws) * (1.0 - x2 / 3.0 + x2 * x2 / 5.0),
+                        2.0 * torch.atan2(n, w) / n)
+    return v * scale
 
 
 # ---------------------------------------------------------------------------
@@ -196,12 +220,14 @@ def matrix_to_euler(R: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Built by concatenation, not by writing into a buffer, so that
+    ``torch.func`` transforms (``vmap``, ``jacfwd``) pass through it."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
-    T = torch.eye(4, dtype=R.dtype, device=R.device).expand(
-        batch + (4, 4)).clone()
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    return T
+    top = torch.cat([R.expand(batch + (3, 3)),
+                     t.expand(batch + (3,))[..., None]], dim=-1)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(
+        batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
 
 
 def rotation(T: torch.Tensor) -> torch.Tensor:
@@ -246,3 +272,40 @@ def average_transforms(Ts: torch.Tensor, weights=None) -> torch.Tensor:
 def normalize_rotation(T: torch.Tensor) -> torch.Tensor:
     """Re-orthonormalize the rotation block (math.h NormalizeRotation)."""
     return from_rt(quat_to_matrix(matrix_to_quat(rotation(T))), translation(T))
+
+
+# ---------------------------------------------------------------------------
+# se(3) exp/log for the pose-graph optimizer
+# ---------------------------------------------------------------------------
+
+def exp_se3(xi: torch.Tensor) -> torch.Tensor:
+    """``xi = [rho(3), phi(3)] → [..., 4, 4]`` (the full SE(3) exponential),
+    ``V = I + b·S + c·S²`` with ``S = skew(phi)``."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    R = axis_angle_to_matrix(phi)
+    sq = torch.sum(phi * phi, dim=-1, keepdim=True)[..., None]
+    small, theta = _theta_safe(sq)
+    s, c = torch.sin(theta), torch.cos(theta)
+    b = torch.where(small, 0.5 - sq / 24.0 + sq * sq / 720.0, (1.0 - c) / sq)
+    cc = torch.where(small, 1.0 / 6.0 - sq / 120.0 + sq * sq / 5040.0,
+                     (theta - s) / (sq * theta))
+    S = skew(phi)
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(R.shape)
+    V = eye + b * S + cc * (S @ S)
+    return from_rt(R, (V @ rho[..., None])[..., 0])
+
+
+def log_se3(T: torch.Tensor) -> torch.Tensor:
+    """``[..., 4, 4] → [rho, phi]`` with ``V⁻¹ = I − S/2 + e·S²``."""
+    phi = matrix_to_axis_angle(rotation(T))
+    sq = torch.sum(phi * phi, dim=-1, keepdim=True)[..., None]
+    small, theta = _theta_safe(sq)
+    s, c = torch.sin(theta), torch.cos(theta)
+    e = torch.where(
+        small, 1.0 / 12.0 + sq / 720.0 + sq * sq / 30240.0,
+        (1.0 - 0.5 * theta * s / torch.clamp_min(1.0 - c, _EPS)) / sq)
+    S = skew(phi)
+    eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(S.shape)
+    Vinv = eye - 0.5 * S + e * (S @ S)
+    rho = (Vinv @ translation(T)[..., None])[..., 0]
+    return torch.cat([rho, phi], dim=-1)

@@ -14,9 +14,8 @@ package does.
 Entry points:
   * :func:`load_config` — XML file/string → :class:`PipelineConfig`
   * :func:`build_map_builder` — :class:`PipelineConfig` → wired
-    :class:`~staticmapping_torch.builder.map_builder.MapBuilder`.  The
-    pose-graph back end is not ported yet (ROADMAP.md queue A item 14), so
-    ``with_backend=True`` raises.
+    :class:`~staticmapping_torch.builder.map_builder.MapBuilder`, with the
+    pose-graph back end unless ``with_backend=False``.
 """
 from __future__ import annotations
 
@@ -26,7 +25,7 @@ import xml.etree.ElementTree as ET
 from typing import Any, Dict, List, Optional, Tuple
 
 from .backend.loop_detector import LoopDetectorSettings
-from .backend.optimizer import OptimizerOptions
+from .backend.optimizer import IncrementalOptimizer, OptimizerOptions
 from .builder.frame import SubmapOptions
 from .builder.frontend import FrontEndOptions, MotionFilterOptions
 from .builder.map_builder import MapBuilder, MapBuilderOptions
@@ -351,13 +350,13 @@ def build_filter_chain(cfg: PipelineConfig) -> Optional[FilterChain]:
 
 def build_map_builder(cfg: PipelineConfig, with_backend: bool = True,
                       device=None) -> MapBuilder:
-    """InitialiseInside (map_builder.cc:62-113): wire the filter chain and
-    the front end on ``device`` (the GPU unless named).  The back-end
-    optimizer is not ported yet, so ``with_backend=True`` raises."""
+    """InitialiseInside (map_builder.cc:62-113): wire the filter chain, the
+    front end and the back-end optimizer on ``device`` (the GPU unless
+    named)."""
+    backend = None
     if with_backend:
-        raise NotImplementedError(
-            "staticmapping_torch does not support the pose-graph back end "
-            "yet (ROADMAP.md queue A item 14): pass with_backend=False, or "
-            "--no-backend on the command line")
+        backend = IncrementalOptimizer(cfg.optimizer,
+                                       loop_settings=cfg.loop_detector,
+                                       device=device)
     return MapBuilder(cfg.map_builder, filter_chain=build_filter_chain(cfg),
-                      device=device)
+                      backend=backend, device=device)

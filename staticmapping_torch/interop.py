@@ -1,24 +1,28 @@
 """State carried between the JAX package and this port.
 
 This system has no weights: its state is point clouds, the chunked front
-end's ``_FeState`` and the sequential front end's poses and target.  The
-functions here build the port's ``PointCloud``, ``NormalCloud`` and
-``_FeState`` from any object with the same field names (the JAX package's
-dataclasses and NamedTuples, or plain mappings) whose leaves convert with
-``numpy.asarray``, load a sequential ``FrontEnd`` from another one's state,
-and turn the port's objects back into nested dicts of numpy arrays.
-Nothing here imports JAX: a JAX array is read through ``numpy.asarray``
-like any other array.
+end's ``_FeState``, the sequential front end's poses and target, and the
+back end's pose graph.  The functions here build the port's ``PointCloud``,
+``NormalCloud``, ``_FeState`` and ``PoseGraph`` (and a pose-graph solver's
+argument tuple) from any object with the same field names (the JAX
+package's dataclasses and NamedTuples, or plain mappings) whose leaves
+convert with ``numpy.asarray``, load a sequential ``FrontEnd`` from another
+one's state, and turn the port's objects back into nested dicts of numpy
+arrays.  The loop detector's history is submaps: their clouds go through
+:func:`point_cloud` and :func:`normal_cloud`.  Nothing here imports JAX: a
+JAX array is read through ``numpy.asarray`` like any other array.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from . import resolve_device
+from .backend import pose_graph as pg
 from .builder.frontend import FrontEnd
 from .builder.pipeline import _FeState
 from .data.cloud import NormalCloud, PointCloud
@@ -81,6 +85,44 @@ def load_frontend(front_end: FrontEnd, src) -> None:
         for t, T in ex_src.timed_pose_queue)
     for name in ("linear_velocity_from_poses", "angular_velocity_from_poses"):
         setattr(ex, name, np.array(getattr(ex_src, name), dtype=np.float64))
+
+
+def _host_list(values) -> list:
+    return [np.array(v, dtype=np.float64) if np.ndim(v) else v
+            for v in values]
+
+
+def pose_graph(src, device=None) -> "pg.PoseGraph":
+    """The port's ``PoseGraph`` (on ``device``) holding ``src``'s nodes,
+    factor lists and special-node values."""
+    g = pg.PoseGraph(device=device)
+    g.num_nodes = int(_field(src, "num_nodes"))
+    for name, cls in (("factors", pg.FactorBatch),
+                      ("gps_factors", pg.GpsFactorBatch),
+                      ("odom_factors", pg.OdomFactorBatch),
+                      ("prior_factors", pg.PriorFactorBatch)):
+        batch = _field(src, name)
+        setattr(g, name, cls(*(_host_list(getattr(batch, f.name))
+                               for f in dataclasses.fields(cls))))
+    g.special_values = _host_list(_field(src, "special_values"))
+    return g
+
+
+def solver_args(args, device=None) -> tuple:
+    """A pose-graph solver's argument tuple (``PoseGraph.solver_args``'s
+    first result) for the port: 0-d leaves become Python numbers, integer
+    arrays int64 tensors, every other array a tensor on ``device``."""
+    dev = resolve_device(device)
+    out = []
+    for a in args:
+        a = np.asarray(a)
+        if a.ndim == 0:
+            out.append(a.item())
+        elif a.dtype.kind in "iu":
+            out.append(torch.from_numpy(a.astype(np.int64)).to(dev))
+        else:
+            out.append(_tensor(a, dev))
+    return tuple(out)
 
 
 def to_numpy(obj) -> Dict[str, Any]:

@@ -43,11 +43,13 @@ def reset_launches() -> None:
 
 def _dist2_block(query: torch.Tensor, target_tile: torch.Tensor):
     """``[..., M, 3] × [..., T, 3] → [..., M, T]`` squared distances by
-    the ``|q|² + |t|² − 2 q·t`` expansion."""
+    the ``|q|² + |t|² − 2 q·t`` expansion.  The [M, T] passes run in place
+    on one buffer; ``sub_(cross, alpha=2)`` rounds as ``− 2.0 * cross``
+    does, since doubling is exact."""
     q2 = torch.sum(query * query, dim=-1, keepdim=True)              # [M, 1]
     t2 = torch.sum(target_tile * target_tile, dim=-1)[..., None, :]  # [1, T]
     cross = query @ target_tile.transpose(-1, -2)                    # [M, T]
-    return torch.clamp_min(q2 + t2 - 2.0 * cross, 0.0)
+    return (q2 + t2).sub_(cross, alpha=2.0).clamp_min_(0.0)
 
 
 def _nearest_plain(query: torch.Tensor, tgt: torch.Tensor,
@@ -66,8 +68,7 @@ def _nearest_plain(query: torch.Tensor, tgt: torch.Tensor,
     for start in range(0, n, tile):
         stop = min(start + tile, n)
         d2 = _dist2_block(query, tgt[..., start:stop, :])
-        d2 = torch.where(target_mask[..., None, start:stop], d2,
-                         float("inf"))
+        d2.masked_fill_(~target_mask[..., None, start:stop], float("inf"))
         tile_best, tile_arg = torch.min(d2, dim=-1)
         take = tile_best < best_d
         best_d = torch.where(take, tile_best, best_d)

@@ -1,15 +1,19 @@
 """Parity of the port's config system (staticmapping_torch.config) with the
 JAX package's: both shipped XML configs load into equal option values, the
-same options are rejected, and the back end is refused until it is ported.
-The CLI itself runs in tests/test_torch_kitti_cli.py."""
+same options are rejected, and the back end is wired by default.  The CLI
+on KITTI files runs in tests/test_torch_kitti_cli.py."""
 import dataclasses
 import os
 
+import numpy as np
 import pytest
 
 from staticmapping_tpu import config as jconfig
 from staticmapping_torch import config as tconfig
-from staticmapping_torch.__main__ import main as cli_main
+from staticmapping_torch.__main__ import make_parser, run as cli_run
+from staticmapping_torch.backend.optimizer import IncrementalOptimizer
+from staticmapping_torch.io import kitti as tkitti
+from staticmapping_torch.io import synthetic as tsynthetic
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = [None, os.path.join(ROOT, "config", "lidar_only_kitti.xml"),
@@ -74,18 +78,47 @@ def test_build_map_builder_wires_the_chain():
     assert mb.front_end.device.type == "cpu"
 
 
-def test_backend_is_refused():
-    """The back end is ROADMAP item 14: ``build_map_builder`` refuses it,
-    and the CLI without ``--no-backend`` exits 2 naming the flag."""
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tconfig.build_map_builder(tconfig.load_config(None), device="cpu")
+def test_build_map_builder_wires_the_backend():
+    """``build_map_builder`` attaches the pose-graph back end unless told
+    not to, with the config's optimizer options and loop-detector
+    settings, on the named device."""
+    cfg = tconfig.load_config(CONFIGS[2])
+    be = tconfig.build_map_builder(cfg, device="cpu").backend
+    assert isinstance(be, IncrementalOptimizer)
+    assert be.options == cfg.optimizer
+    assert be.loop_detector.settings == cfg.loop_detector
+    assert be.graph.device.type == be.loop_detector.device.type == "cpu"
+    assert tconfig.build_map_builder(cfg, with_backend=False,
+                                     device="cpu").backend is None
 
 
-def test_cli_without_no_backend_names_the_flag(tmp_path, capsys):
-    rc = cli_main(["--synthetic", "straight", "--scans", "2", "--out",
-                   str(tmp_path), "--device", "cpu", "--quiet"])
-    assert rc == 2
-    assert "--no-backend" in capsys.readouterr().err
+def test_cli_runs_the_backend_on_the_synthetic_square(tmp_path, monkeypatch):
+    """Without ``--no-backend`` the CLI hands every full submap to the back
+    end (M2DP descriptors on, as config/synthetic.xml asks), runs the final
+    optimization and writes its outputs.  The world is cut to 4000 points
+    a scan and the widths to 4096-slot scans to keep the run short on the
+    CPU."""
+    load, make_sequence = tconfig.load_config, tsynthetic.make_sequence
+
+    def narrow(path):
+        cfg = load(path)
+        cfg.map_builder.front_end.scan_capacity = 4096
+        cfg.map_builder.front_end.nn_tile = 512
+        cfg.map_builder.submap_capacity = 8192
+        return cfg
+    monkeypatch.setattr(tconfig, "load_config", narrow)
+    monkeypatch.setattr(tsynthetic, "make_sequence", lambda **kw:
+                        make_sequence(max_points=4000, **kw))
+    mb = cli_run(make_parser().parse_args(
+        ["--synthetic", "square", "--scans", "6", "--out", str(tmp_path),
+         "--device", "cpu", "--quiet"]))
+    full = [s for s in mb.trajectory if s.full]
+    assert mb.backend.graph.num_nodes == len(full) >= 2
+    assert len(mb.backend.graph.factors) == len(full) - 1
+    assert all(s.descriptor is not None for s in full)
+    written = tkitti.read_poses(str(tmp_path / "kitti_pose.txt"))
+    assert written.shape == (len(mb.trajectory), 4, 4)
+    assert np.isfinite(written).all()
 
 
 def test_unported_filter_names_raise():

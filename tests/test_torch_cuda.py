@@ -511,3 +511,150 @@ def test_short_cli_run(cuda_device, tmp_path):
     poses = kitti.read_poses(str(out / "kitti_pose.txt"))
     assert len(poses) >= 1 and np.isfinite(poses).all()
     assert len(pcd.read_pcd(str(out / "static_map.pcd"))) > 0
+
+
+# ---------------------------------------------------------------------------
+# the pose-graph back end
+# ---------------------------------------------------------------------------
+
+def _boxes(rng, n=6000):
+    """Points on the faces of a few boxes: a cloud with structure for the
+    M2DP descriptor and the GICP normals."""
+    pts = []
+    for _ in range(6):
+        c = rng.uniform(-15, 15, 3) * [1, 1, 0.2]
+        size = rng.uniform(2, 6, 3)
+        face = rng.integers(0, 3, n // 6)
+        p = rng.uniform(-0.5, 0.5, (n // 6, 3))
+        p[np.arange(n // 6), face] = rng.choice([-0.5, 0.5], n // 6)
+        pts.append(c + p * size)
+    return np.concatenate(pts).astype(np.float32)
+
+
+def test_m2dp_on_the_gpu_matches_the_cpu(cuda_device):
+    """The histogram of the same aligned points equals the CPU's on at
+    least 99.99% of the counts (a point on a bin edge may round to the
+    neighbouring bin), and the descriptors match to 0.9999."""
+    from staticmapping_torch.data import cloud as tcloud
+    from staticmapping_torch.descriptor import m2dp
+    pts = _boxes(np.random.default_rng(30))
+    gpu = tcloud.from_numpy(pts, capacity=8192, device=cuda_device)
+    cpu = tcloud.from_numpy(pts, capacity=8192, device="cpu")
+    aligned = m2dp.pca_align(cpu)
+    A_g = m2dp.histogram(aligned.to(cuda_device), gpu.mask).cpu().numpy()
+    A_c = m2dp.histogram(aligned, cpu.mask).numpy()
+    assert np.abs(A_g - A_c).sum() / 2 <= 1e-4 * A_c.sum()
+    d_g, d_c = m2dp.compute_descriptor(gpu), m2dp.compute_descriptor(cpu)
+    assert d_g.is_cuda
+    assert float(m2dp.match_descriptors(d_g.cpu(), d_c)) >= 0.9999
+
+
+def _circle_graph(device, n=24, drift=0.05, seed=31):
+    """A noisy circle with a loop closure, GPS factors on the calibration
+    error, odometry factors and priors on the special nodes."""
+    from staticmapping_torch.backend import pose_graph as pg
+    from staticmapping_torch.common import np_se3
+    rng = np.random.default_rng(seed)
+    step = np_se3.from_rt(np_se3.euler_to_matrix(
+        np.array([0.0, 0.0, 2 * np.pi / n])), np.array([2.0, 0.0, 0.0]))
+    gt = [np.eye(4)]
+    for _ in range(n - 1):
+        gt.append(gt[-1] @ step)
+    g = pg.PoseGraph(device=device)
+    odom = [gt[0]]
+    for k in range(n):
+        g.add_node()
+    for k in range(n - 1):
+        noise = np_se3.from_rt(np_se3.euler_to_matrix(
+            rng.normal(0, drift / 4, 3)), rng.normal(0, drift, 3))
+        meas = np_se3.inverse(gt[k]) @ gt[k + 1] @ noise
+        g.add_between(k, k + 1, meas)
+        odom.append(odom[-1] @ meas)
+    g.add_between(n - 1, 0, np_se3.inverse(gt[-1]) @ gt[0])
+    offset = np.array([100.0, 50.0, 3.0])
+    for k in range(0, n, 4):
+        g.add_gps(k, gt[k][:3, 3] + offset, p_tracking_gps=(0.1, 0.0, 0.2),
+                  use_calib_error=True)
+        g.add_odom(k, gt[k])
+    g.add_special_prior(pg.SPECIAL_ODOM_CALIB, np.eye(4),
+                        (0.1, 0.1, 0.1, 0.5, 0.5, 1.5))
+    g.add_special_prior(pg.SPECIAL_GPS_CALIB, np.eye(4),
+                        (1.0, 1.0, 0.2, 1e-4, 1e-4, 1e-4))
+    g.add_special_prior(pg.SPECIAL_GPS_COORD,
+                        np_se3.from_rt(np.eye(3), offset),
+                        (1.0, 1.0, 1.0, 0.1, 0.1, 0.2))
+    return g, np.stack(odom)
+
+
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_pose_graph_solve_on_the_gpu_matches_the_cpu(cuda_device, solver):
+    """Three trips, before the f32 noise floor: poses within 1e-4 m and
+    the χ² within 1e-3 relative (the GPU's scatter-adds sum in another
+    order)."""
+    g_g, odom = _circle_graph(cuda_device)
+    g_c, _ = _circle_graph("cpu")
+    out_g = g_g.optimize(odom, num_iters=3, solver=solver)
+    out_c = g_c.optimize(odom, num_iters=3, solver=solver)
+    assert np.abs(out_g[:, :3, 3] - out_c[:, :3, 3]).max() <= 1e-4
+    assert np.abs(out_g[:, :3, :3] - out_c[:, :3, :3]).max() <= 1e-4
+    assert abs(g_g.last_chi2 - g_c.last_chi2) <= 1e-3 * max(g_c.last_chi2,
+                                                            1.0)
+
+
+def test_align_gicp_on_the_gpu_matches_the_cpu(cuda_device):
+    """The GICP gate's align on the same normal cloud: T within 1e-3 m and
+    1e-3 rad, the score within 1e-3, through the single-pair kernel."""
+    from staticmapping_torch.common import np_se3
+    from staticmapping_torch.data import cloud as tcloud
+    from staticmapping_torch.registration import gicp
+    pts = _boxes(np.random.default_rng(32), n=4096)
+    gc = gicp.compute_point_normals(
+        tcloud.from_numpy(pts, capacity=4096, device="cpu"), k=20)
+    gg = gicp.GicpCloud(*(x.to(cuda_device) for x in gc))
+    guess = torch.from_numpy(np_se3.from_rt(
+        np_se3.euler_to_matrix(np.array([0.0, 0.0, 0.04])),
+        np.array([0.3, -0.2, 0.05])).astype(np.float32))
+    before = tnn.launches["single"]
+    T_g, s_g = gicp.align_gicp(gg, gg, guess.to(cuda_device),
+                               max_correspondence_dist=2.0, max_iteration=8)
+    T_c, s_c = gicp.align_gicp(gc, gc, guess, max_correspondence_dist=2.0,
+                               max_iteration=8)
+    assert tnn.launches["single"] > before
+    T_g, T_c = T_g.cpu().numpy(), T_c.numpy()
+    assert np.abs(T_g[:3, 3] - T_c[:3, 3]).max() <= 1e-3
+    assert np.abs(T_g[:3, :3] - T_c[:3, :3]).max() <= 1e-3
+    assert abs(float(s_g) - float(s_c)) <= 1e-3
+
+
+def test_kernel_at_the_loop_verifier_shape_matches_plain(cuda_device):
+    """18 pairs (3 yaw guesses x 6 candidates) of a 65536-slot source
+    against 8192 targets, the kernel against ``_nearest_plain`` on the same
+    card."""
+    rng = np.random.default_rng(33)
+    q, t, mask = _problem(rng, (18,), 65536, 8192, 512)
+    qd, td, md = (torch.from_numpy(x).to(cuda_device) for x in (q, t, mask))
+    before = tnn.launches["batched"]
+    d_k, i_k = tnn.nearest_1(qd, td, md)
+    assert tnn.launches["batched"] == before + 1
+    d_p, i_p = tnn._nearest_plain(
+        qd, torch.where(md[..., None], td, tnn._FAR), md)
+    assert float((i_k == i_p).float().mean()) >= 0.999
+    assert float((d_k - d_p).abs().max()) <= 5e-2
+
+
+def test_short_cli_run_with_the_backend(cuda_device, tmp_path):
+    """``python -m staticmapping_torch --synthetic square`` without
+    ``--no-backend`` on its first 40 scans: every full submap reaches the
+    back end with its M2DP descriptor, past the loop detector's 15-submap
+    threshold, and the outputs are finite."""
+    from staticmapping_torch import __main__ as cli
+    from staticmapping_torch.io import kitti
+    mb = cli.run(cli.make_parser().parse_args(
+        ["--synthetic", "square", "--scans", "40", "--out",
+         str(tmp_path), "--device", "cuda", "--quiet"]))
+    full = [s for s in mb.trajectory if s.full]
+    assert mb.backend.graph.num_nodes == len(full) > 15
+    assert all(s.descriptor is not None for s in full)
+    assert len(mb.backend.loop_detector.frames) == len(full)
+    poses = kitti.read_poses(str(tmp_path / "kitti_pose.txt"))
+    assert len(poses) == len(mb.trajectory) and np.isfinite(poses).all()

@@ -16,6 +16,7 @@ FORBIDDEN = ("jax", "jaxlib", "staticmapping_tpu")
 def _port_sources():
     paths = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "scripts", "main_path.py"),
+             os.path.join(ROOT, "scripts", "backend_path_frames.py"),
              os.path.join(ROOT, "scripts", "nn_kernel_times.py"),
              os.path.join(ROOT, "scripts", "profile_main_path.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]

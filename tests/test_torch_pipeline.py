@@ -202,29 +202,24 @@ def test_memory_manager_offloads_inactive_submaps(tmp_path):
 def _gate_cases():
     fe = tfrontend.FrontEndOptions
     return {
-        "map_package": (dict(save_map_package=True), None),
-        "backend": ({}, object()),
-        "matcher_type_3": (dict(front_end=fe(matcher_type=3)), None),
-        "matcher_type_5": (dict(front_end=fe(matcher_type=5)), None),
-        "sequential_matcher_type_1": (dict(pipelined=False,
-                                           front_end=fe(matcher_type=1)),
-                                      None),
-        "sequential_matcher_type_3": (dict(pipelined=False,
-                                           front_end=fe(matcher_type=3)),
-                                      None),
+        "map_package": dict(save_map_package=True),
+        "matcher_type_3": dict(front_end=fe(matcher_type=3)),
+        "matcher_type_5": dict(front_end=fe(matcher_type=5)),
+        "sequential_matcher_type_1": dict(pipelined=False,
+                                          front_end=fe(matcher_type=1)),
+        "sequential_matcher_type_3": dict(pipelined=False,
+                                          front_end=fe(matcher_type=3)),
     }
 
 
 @pytest.mark.parametrize("case", sorted(_gate_cases()))
 def test_unported_options_raise(case, tmp_path):
     """Every option whose code is not ported raises NotImplementedError at
-    construction (the map package, a back end, matchers other than type
-    6)."""
-    overrides, backend = _gate_cases()[case]
-    kw = {"pipelined": True, "export_file_path": str(tmp_path), **overrides}
+    construction (the map package, matchers other than type 6)."""
+    kw = {"pipelined": True, "export_file_path": str(tmp_path),
+          **_gate_cases()[case]}
     with pytest.raises(NotImplementedError):
-        tmb.MapBuilder(tmb.MapBuilderOptions(**kw), backend=backend,
-                       device=CPU)
+        tmb.MapBuilder(tmb.MapBuilderOptions(**kw), device=CPU)
 
 
 def test_entry_points_need_cuda_by_default():
