@@ -29,7 +29,14 @@ compiler per source, all started together), then, one phase after another:
 - ``backend``: ``python -m staticmapping_torch --synthetic square
   --pipelined`` with the pose-graph back end on (M2DP gate, the batched
   loop verifier on K2, the GICP gate on K1, the pose-graph solves), checked
-  against the ground truth and the JAX package's run of the same settings.
+  against the ground truth and the JAX package's run of the same settings;
+- ``matchers``: the other matcher types at full width
+  (``scripts/main_path.py::MATCHER_PATH``): NDT-GICP (type 3, its GICP
+  stage on K1) and NDT (type 5) on the chunked front end with the back end
+  on, and IcpPM (type 1) through the CLI, each held to an ATE limit from
+  the JAX package's run of the same scans; type 5's front end run again on
+  the card and on the CPU, the card's keyframes held to the CPU's; then K1
+  at the GICP stage's shape held to its plain version and timed.
 Each path's launch counts are set to 0 just before it and read just after.
 Every phase prints one JSON line; the line before the last lists the
 kernels, and the last line is ``{"ok": true, "device": ...}``.  Any failure
@@ -49,8 +56,10 @@ import numpy as np
 import torch
 
 from scripts.main_path import (BACKEND_PATH, CLI_PATH, MAIN_PATH,
-                               cli_sequence, loop_gap, stamp_matched_ate,
-                               write_kitti_bins)
+                               MATCHER_PATH, cli_sequence,
+                               configure_matcher_run, loop_gap,
+                               matcher_sequence, stamp_matched_ate,
+                               write_kitti_bins, write_matcher_cfg)
 from scripts.nn_kernel_times import eager_ms as time_ms, graph_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -74,6 +83,14 @@ JAX_CLI_STATIC_VOXELS = 56286
 # its loop gap must be under 1 m.
 JAX_FRONTEND_ATE_M = 0.7133562445052214
 JAX_FRONTEND_LOOP_GAP_M = 0.32015412172757185
+
+# ATE of staticmapping_tpu on MATCHER_PATH's scans with the back end off,
+# measured on a CPU by scripts/jax_matcher_ate.py; each run of the port may
+# not exceed max(2 x this, the bound of tests/test_matcher_e2e.py for the
+# type)
+JAX_MATCHER_ATE_M = {"type3": 0.02281894651969786,
+                     "type5": 5.826329594880556,
+                     "type1": 0.06565525763290737}
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -102,7 +119,8 @@ BACKEND_SHAPES = {"batched": (18, 65536, 8192), "single": (0, 16384, 16384)}
 # last sixteenth, source hash-thinned) of bench.py:101-107, then the back
 # end's: the loop verifier's batch (3 yaw guesses x 6 candidates, a
 # hash-thinned 65536-slot submap against its 8192-slot leaf-8 normals) and
-# the GICP gate (4x-strided 65536-slot submaps)
+# the GICP gate (4x-strided 65536-slot submaps), then type 3's GICP stage
+# (GICP_STAGE_SHAPE)
 SWEEP_SHAPES = [("512x4096", 1, 512, 4096, 96, False),
                 ("128x128", 1, 128, 128, 0, False),
                 ("1920x2176", 1, 1920, 2176, 0, False),
@@ -110,7 +128,8 @@ SWEEP_SHAPES = [("512x4096", 1, 512, 4096, 96, False),
                 ("B2_2048x4096", 2, 2048, 4096, None, False),
                 ("B2_65536x65536", 2, 65536, 65536, None, False),
                 ("B18_65536x8192_thinned", 18, 65536, 8192, None, True),
-                ("16384x16384", 1, 16384, 16384, 0, False)]
+                ("16384x16384", 1, 16384, 16384, 0, False),
+                ("32768x32768", 1, 32768, 32768, 0, False)]
 
 
 VARIANT_SOURCE = "staticmapping_torch/csrc/nn_variants.cu"
@@ -180,8 +199,8 @@ def thinned_rows(m: int) -> np.ndarray:
 
 
 def sweep(nn_search) -> None:
-    """Both entries over the six shapes of bench.py:101-107 and the back
-    end's two."""
+    """Both entries over the six shapes of bench.py:101-107, the back
+    end's two and the GICP stage's."""
     rng = np.random.default_rng(0)
     for label, b, m, n, n_invalid, thin in SWEEP_SHAPES:
         q = rng.uniform(-20, 20, (b, m, 3)).astype(np.float32)
@@ -236,6 +255,22 @@ def main_shape_inputs(nn_search, rng, b, m, n):
     return q, t, mask, torch.where(mask[..., None], t, nn_search._FAR)
 
 
+def hold_to_plain(nn_search, q, t, mask, tgt, label: str):
+    """``nearest_1`` against ``_nearest_plain`` on the same card and inputs;
+    returns ``(idx agreement, max |d² err|, d_k, i_k)``.  The two forms
+    round differently: idx is held to the near-tie share and d² to the
+    plain expansion's own f32 error at 30 m coordinates."""
+    d_k, i_k = nn_search.nearest_1(q, t, mask)
+    d_p, i_p = nn_search._nearest_plain(q, tgt, mask)
+    torch.cuda.synchronize()
+    agree = float((i_k == i_p).float().mean())
+    max_abs_err = float((d_k - d_p).abs().max())
+    if agree < 0.999 or max_abs_err > 5e-2:
+        raise AssertionError(f"{label}: kernel vs plain idx agree {agree}, "
+                             f"max |d2 err| {max_abs_err}")
+    return agree, max_abs_err, d_k, i_k
+
+
 def kernel_vs_plain(nn_search) -> dict:
     """Each entry against ``_nearest_plain`` on the same card and inputs at
     the main path's shape, then timed beside the plain version, one
@@ -248,16 +283,8 @@ def kernel_vs_plain(nn_search) -> dict:
     out = {}
     for entry, (b, m, n) in MAIN_SHAPES.items():
         q, t, mask, tgt = main_shape_inputs(nn_search, rng, b, m, n)
-        d_k, i_k = nn_search.nearest_1(q, t, mask)
-        d_p, i_p = nn_search._nearest_plain(q, tgt, mask)
-        torch.cuda.synchronize()
-        agree = float((i_k == i_p).float().mean())
-        max_abs_err = float((d_k - d_p).abs().max())
-        # the two forms round differently: hold idx to the near-tie share
-        # and d² to the plain expansion's own f32 error at 30 m coordinates
-        if agree < 0.999 or max_abs_err > 5e-2:
-            raise AssertionError(f"{entry}: kernel vs plain idx agree "
-                                 f"{agree}, max |d2 err| {max_abs_err}")
+        agree, max_abs_err, d_k, i_k = hold_to_plain(nn_search, q, t, mask,
+                                                     tgt, entry)
         reps = 50 if entry == "single" else 10
         # the kernel alone, on the same pre-masked targets as the plain one
         call = lambda: nn_search._nearest_cuda(q, tgt)
@@ -276,7 +303,7 @@ def kernel_vs_plain(nn_search) -> dict:
                       "share_of_bound": bound_ms / ms,
                       "plan": plan._asdict()}
         emit({"phase": "nn_kernel_vs_plain", "entry": entry, **out[entry]})
-        del q, t, mask, tgt, d_k, i_k, d_p, i_p
+        del q, t, mask, tgt, d_k, i_k
         torch.cuda.empty_cache()
     return out
 
@@ -856,6 +883,273 @@ def backend_path(nn_search) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the matcher path
+# ---------------------------------------------------------------------------
+
+# (entry, batch, queries, targets) of type 3's GICP stage: a 0.2 m voxel
+# filtered scan against its keyframe's, both at the scan capacity
+GICP_STAGE_SHAPE = (0, 32768, 32768)
+
+
+def _run_numbers(mb, frames, n_scans, launches, t_loop, finish_s):
+    """The figures every matcher run prints."""
+    from staticmapping_torch.registration import gicp, icp_fast, ndt
+    return {"keyframes": len(frames), "submaps": len(mb.trajectory),
+            "scans_per_s": n_scans / t_loop, "finish_s": finish_s,
+            "launches": launches, "ndt_trips": ndt.trips.counts(),
+            "gicp_trips": gicp.trips.counts(),
+            "icp_trips": icp_fast.trip_counts(),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _reset_counts(nn_search) -> None:
+    from staticmapping_torch.common import prof
+    from staticmapping_torch.registration import gicp, icp_fast, ndt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nn_search.reset_launches()
+    icp_fast.reset_trips()
+    ndt.trips.reset()
+    gicp.trips.reset()
+    prof.reset()
+    prof.enable(report_at_exit=False)
+
+
+def _chunked_run(run, scans, device, with_backend: bool, out: str):
+    """Drive one chunked MATCHER_PATH run on ``device`` through
+    ``config.load_config`` and ``build_map_builder`` (bench.py::eval_run);
+    returns ``(mb, insert-loop s, finish s)``."""
+    from staticmapping_torch import config as config_lib
+
+    cfg = config_lib.load_config(os.path.join(ROOT, MATCHER_PATH["cfg"]))
+    shutil.rmtree(out, ignore_errors=True)
+    cfg.map_builder.export_file_path = out
+    configure_matcher_run(cfg, run)
+    mb = config_lib.build_map_builder(cfg, with_backend=with_backend,
+                                      device=device)
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+    period = 1.0 / MATCHER_PATH["rate"]
+    t0 = time.perf_counter()
+    for i, pts in enumerate(scans):
+        mb.insert_pointcloud(i * period, pts)
+    sync()
+    t1 = time.perf_counter()
+    mb.finish()
+    sync()
+    return mb, t1 - t0, time.perf_counter() - t1
+
+
+def _frames(mb):
+    return [(f.stamp, f.global_pose) for s in mb.trajectory for f in s.frames]
+
+
+def matcher_chunked_run(nn_search, run, scans, gt) -> dict:
+    """One chunked matcher run of MATCHER_PATH with the back end on, the
+    K1 launches of type 3's GICP stage counted apart."""
+    from staticmapping_torch.builder import pipeline
+    from staticmapping_torch.common import prof
+    from staticmapping_torch.io import kitti
+
+    out = os.path.join(ROOT, "chiprun_out", "chip_smoke_matchers",
+                       run["name"])
+    period = 1.0 / MATCHER_PATH["rate"]
+    align_gicp = pipeline.align_gicp
+    stage = {"single": 0}
+
+    def counted(*args, **kwargs):
+        before = nn_search.launches["single"]
+        try:
+            return align_gicp(*args, **kwargs)
+        finally:
+            stage["single"] += nn_search.launches["single"] - before
+    pipeline.align_gicp = counted
+    _reset_counts(nn_search)
+    try:
+        mb, t_loop, finish_s = _chunked_run(run, scans, DEV, True, out)
+    finally:
+        pipeline.align_gicp = align_gicp
+        prof.disable()
+    launches = dict(nn_search.launches)
+    be = mb.backend
+    frames = _frames(mb)
+    ate = stamp_matched_ate(frames, gt, period, kitti.ate_rmse)
+    rel_gt = [np.linalg.solve(gt[0], g) for g in gt]
+    gap = loop_gap([s.global_pose for s in mb.trajectory],
+                   [s.stamp for s in mb.trajectory], rel_gt, period)
+    poses = kitti.read_poses(os.path.join(out, "kitti_pose.txt"))
+    limit = max(2.0 * JAX_MATCHER_ATE_M[run["name"]], run["test_ate_m"])
+    # what a matcher that never moves the estimate scores: the ground
+    # truth's own spread after alignment
+    still = kitti.ate_rmse(np.repeat(np.eye(4)[None], len(gt), 0),
+                           np.stack(rel_gt))
+    res = {"run": run["name"], "matcher_type": run["matcher_type"],
+           "n_scans": len(scans), "pipelined": True, "backend": True,
+           "ate_m": ate, "ate_limit_m": limit,
+           "jax_ate_m": JAX_MATCHER_ATE_M[run["name"]],
+           "test_ate_m": run["test_ate_m"], "standing_still_ate_m": still,
+           "loop_edge_count": be.loop_edge_count, "loop_gap_m": gap,
+           "gicp_stage_launches": stage,
+           **_run_numbers(mb, frames, len(scans), launches, t_loop,
+                          finish_s)}
+    if len(poses) != len(mb.trajectory) or not np.isfinite(poses).all():
+        raise AssertionError(f"{run['name']}: kitti_pose.txt does not hold "
+                             "finite submap poses")
+    return res
+
+
+def matcher_cpu_twin(run, scans, gt) -> dict:
+    """The chunked front end of one run (back end off) on the card and on
+    the CPU from the same scans.  Each voxel's sums run in point order on
+    both devices (``ops/voxel.py::_segment_sum``), so the two differ only
+    by the rounding of the other reductions: the card must find the CPU's
+    keyframes (the same scans) with every keyframe position within
+    MATCHER_PATH's ``twin_tol_m``.  This binds where the ATE limit cannot:
+    on type 5's scans standing still scores under that limit."""
+    from staticmapping_torch.io import kitti
+
+    period = 1.0 / MATCHER_PATH["rate"]
+    got = []
+    for dev in (DEV, torch.device("cpu")):
+        out = os.path.join(ROOT, "chiprun_out", "chip_smoke_matchers",
+                           f"{run['name']}_frontend_{dev.type}")
+        mb, t_loop, finish_s = _chunked_run(run, scans, dev, False, out)
+        frames = _frames(mb)
+        got.append({
+            "stamps": [round(float(st), 3) for st, _ in frames],
+            "xyz": np.stack([T[:3, 3] for _, T in frames]),
+            "ate_m": stamp_matched_ate(frames, gt, period, kitti.ate_rmse),
+            "insert_s": t_loop, "finish_s": finish_s})
+    g, c = got
+    same = g["stamps"] == c["stamps"]
+    gap = (float(np.abs(g["xyz"] - c["xyz"]).max()) if same else None)
+    res = {"run": f"{run['name']}_cpu_twin", "n_scans": len(scans),
+           "keyframes_gpu": len(g["stamps"]),
+           "keyframes_cpu": len(c["stamps"]),
+           "same_keyframes": same, "max_keyframe_gap_m": gap,
+           "tol_m": MATCHER_PATH["twin_tol_m"],
+           "ate_gpu_m": g["ate_m"], "ate_cpu_m": c["ate_m"],
+           "jax_ate_m": JAX_MATCHER_ATE_M[run["name"]],
+           "gpu_s": g["insert_s"] + g["finish_s"],
+           "cpu_s": c["insert_s"] + c["finish_s"]}
+    emit({"phase": "matchers", **res})
+    if not same:
+        raise AssertionError(f"{run['name']}: the card's keyframes "
+                             f"{g['stamps']} are not the CPU's {c['stamps']}")
+    if not gap <= MATCHER_PATH["twin_tol_m"]:
+        raise AssertionError(f"{run['name']}: a keyframe lies {gap} m from "
+                             "the CPU's")
+    return res
+
+
+def matcher_cli_run(nn_search, run) -> dict:
+    """``python -m staticmapping_torch --cfg <config copy with the scan
+    matcher set to the type> --kitti DIR --no-backend`` on the first scans
+    of the CLI path."""
+    from staticmapping_torch import __main__ as cli
+    from staticmapping_torch.common import prof
+    from staticmapping_torch.io import kitti, synthetic
+
+    scans, gt = cli_sequence(synthetic.make_sequence, run["n_scans"])
+    work = os.path.join(ROOT, "chiprun_out", "chip_smoke_matchers",
+                        run["name"])
+    velodyne, out = os.path.join(work, "velodyne"), os.path.join(work, "out")
+    shutil.rmtree(work, ignore_errors=True)
+    write_kitti_bins(velodyne, scans)
+    cfg = os.path.join(work, "matcher.xml")
+    write_matcher_cfg(os.path.join(ROOT, run["cfg"]), run["matcher_type"],
+                      cfg)
+    args = cli.make_parser().parse_args(
+        ["--cfg", cfg, "--kitti", velodyne, "--out", out, "--no-backend",
+         "--rate", str(CLI_PATH["rate"]), "--device", "cuda", "--quiet"])
+    _reset_counts(nn_search)
+    t0 = time.perf_counter()
+    try:
+        mb = cli.run(args)
+        torch.cuda.synchronize()
+    finally:
+        prof.disable()
+    total = time.perf_counter() - t0
+    launches = dict(nn_search.launches)
+    finish_s = prof.stats()["Finish"]["sum"]
+    shutil.rmtree(velodyne)
+    period = 1.0 / CLI_PATH["rate"]
+    frames = [(f.stamp, f.global_pose) for s in mb.trajectory
+              for f in s.frames]
+    ate = stamp_matched_ate(frames, gt, period, kitti.ate_rmse)
+    poses = kitti.read_poses(os.path.join(out, "kitti_pose.txt"))
+    limit = max(2.0 * JAX_MATCHER_ATE_M[run["name"]], run["test_ate_m"])
+    res = {"run": run["name"], "matcher_type": run["matcher_type"],
+           "n_scans": len(scans), "pipelined": False, "backend": False,
+           "matcher": type(mb.front_end.matcher).__name__,
+           "ate_m": ate, "ate_limit_m": limit,
+           "jax_ate_m": JAX_MATCHER_ATE_M[run["name"]],
+           "test_ate_m": run["test_ate_m"],
+           "loop_edge_count": 0, "loop_gap_m": None,
+           **_run_numbers(mb, frames, len(scans), launches,
+                          total - finish_s, finish_s)}
+    if len(poses) != len(mb.trajectory) or not np.isfinite(poses).all():
+        raise AssertionError("type1: kitti_pose.txt does not hold finite "
+                             "submap poses")
+    return res
+
+
+def matchers_path(nn_search) -> dict:
+    """The three matcher runs, each printed as it ends, the CPU twins of
+    the runs MATCHER_PATH names, then K1 at the GICP stage's shape held to
+    its plain version and timed; fails on an ATE over its limit, a twin
+    that strays, or a run that never launched its kernels."""
+    from staticmapping_torch.io import synthetic
+
+    runs, twins = {}, {}
+    for run in MATCHER_PATH["chunked"]:
+        scans, gt = matcher_sequence(run, synthetic.make_sequence)
+        runs[run["name"]] = matcher_chunked_run(nn_search, run, scans, gt)
+        emit({"phase": "matchers", **runs[run["name"]]})
+        if run["name"] in MATCHER_PATH["cpu_twin"]:
+            twins[run["name"]] = matcher_cpu_twin(run, scans, gt)
+    seq = MATCHER_PATH["sequential"]
+    runs[seq["name"]] = matcher_cli_run(nn_search, seq)
+    emit({"phase": "matchers", **runs[seq["name"]]})
+    b, m, n = GICP_STAGE_SHAPE
+    rng = np.random.default_rng(5)
+    q, t, mask, tgt = main_shape_inputs(nn_search, rng, b, m, n)
+    agree, max_abs_err, d_k, i_k = hold_to_plain(nn_search, q, t, mask, tgt,
+                                                 "k1_gicp_stage")
+    contract = check_one(q.cpu().numpy(), t.cpu().numpy(),
+                         mask.cpu().numpy(), d_k.cpu().numpy(),
+                         i_k.cpu().numpy())
+    bound_ms, bound_by = nn_bound(b, m, n)
+    ms = graph_ms(lambda: nn_search._nearest_cuda(q, tgt), 20)
+    gicp_stage = {"shape": [b, m, n], "idx_agree": agree,
+                  "max_abs_err": max_abs_err, "contract": contract,
+                  "ms": ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                  "plan": nn_search.plan(1, m, n,
+                                         sms=nn_search._sm_count(DEV))
+                  ._asdict()}
+    emit({"phase": "matchers", "run": "k1_gicp_stage", **gicp_stage})
+    del q, t, mask, tgt, d_k, i_k
+    torch.cuda.empty_cache()
+    if not contract["ok"]:
+        raise AssertionError(f"K1 at the GICP stage's shape fails the "
+                             f"near-tie contract: {contract}")
+    for name, r in runs.items():
+        if not r["ate_m"] <= r["ate_limit_m"]:
+            raise AssertionError(f"{name}: ATE {r['ate_m']} m exceeds "
+                                 f"{r['ate_limit_m']} m")
+    if runs["type3"]["gicp_stage_launches"]["single"] <= 0:
+        raise AssertionError("type 3's GICP stage never launched K1")
+    for name in ("type3", "type5"):
+        if runs[name]["launches"]["batched"] <= 0:
+            raise AssertionError(f"{name}: the pair matches and the loop "
+                                 "verifier never launched K2")
+    if runs["type1"]["launches"]["single"] <= 0:
+        raise AssertionError("type 1 never launched K1")
+    return {"runs": runs, "twins": twins, "gicp_stage": gicp_stage}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -893,6 +1187,7 @@ def main() -> int:
     mb, _ = cli_path(nn_search)
     mrvm_vs_plain(mb)
     backend = backend_path(nn_search)
+    matchers = matchers_path(nn_search)
 
     def entry(meta, source, launches, t):
         return {"name": meta["name"], "route": "cuda", "source": source,
@@ -901,10 +1196,13 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
-    # K1 and K2 launch on the main path and on the back-end path
+    # K1 and K2 launch on the main path, the back-end path and the three
+    # matcher runs
     emit({"kernels": [
         entry(meta, NN_SOURCE,
-              res["launches"][k] + backend["launches"][k], timing[k])
+              res["launches"][k] + backend["launches"][k]
+              + sum(r["launches"][k] for r in matchers["runs"].values()),
+              timing[k])
         for k, meta in NN_KERNELS.items()] + [
         entry(meta, VARIANT_SOURCE, bench["launches"][k], vtiming[k])
         for k, meta in VARIANT_KERNELS.items()]})

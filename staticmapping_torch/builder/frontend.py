@@ -13,9 +13,12 @@ target, step by step against map_builder.cc:
   motion filter: translation ≥ range OR Σ|euler|° ≥ range →
   new keyframe, source becomes target (re-normal-ed)         (cc:369-392)
 
-Matcher type 6 (point-to-plane ``icp_fast``) only: types 1, 3 and 5 go
-through ``registration/factory.py``, which is not ported (ROADMAP.md queue A
-item 13).  The chunked device front end is ``builder/pipeline.py``.
+Matcher type 6 runs the point-to-plane ``icp_fast`` against a normals
+target in one device function per scan; types 1, 3 and 5 take their
+matcher from ``registration.factory.create_matcher`` (the CreateMatcher
+role, interface.cc:139-173) against the compacted scan, with the guess
+averaging done on the host in float64.  The chunked device front end is
+``builder/pipeline.py``.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from ..common import np_se3, prof, se3
 from ..data import cloud as cloud_lib
 from ..data.cloud import PointCloud
 from ..ops.normals import estimate_normals
+from ..registration.factory import create_matcher
 from ..registration.icp_fast import align_point_to_plane
 from .frame import Frame
 from .pose_extrapolator import PoseExtrapolator
@@ -102,12 +106,6 @@ class FrontEnd:
                  extrapolator: Optional[PoseExtrapolator] = None,
                  device=None):
         self.options = options or FrontEndOptions()
-        if self.options.matcher_type != 6:
-            raise NotImplementedError(
-                f"matcher type {self.options.matcher_type}: the sequential "
-                "front end of staticmapping_torch supports type 6 only; "
-                "types 1, 3 and 5 go through registration/factory.py, "
-                "ROADMAP.md queue A item 13")
         self.device = resolve_device(device)
         self.filter_chain = filter_chain
         self.extrapolator = (extrapolator
@@ -118,6 +116,10 @@ class FrontEnd:
         self.got_first = False
         self.last_score = 1.0
         self.num_scans = 0
+        # types 1, 3 and 5 go through the factory; type 6 keeps the
+        # normals target and the fused per-scan function below
+        self.matcher = (None if self.options.matcher_type == 6
+                        else create_matcher(self.options.matcher_type))
 
     # ------------------------------------------------------------------
     def _prepare(self, points: np.ndarray) -> PointCloud:
@@ -130,8 +132,12 @@ class FrontEnd:
     def _set_target(self, pc: PointCloud) -> None:
         # "scan match:target" block (map_builder.cc:316)
         with prof.block("scan match:target"):
-            self.target = _target_normals(
-                pc, leaf_size=self.options.target_leaf_size)
+            if self.matcher is None:
+                self.target = _target_normals(
+                    pc, leaf_size=self.options.target_leaf_size)
+            else:
+                self.target = pc.compact()
+                self.matcher.set_input_target(self.target)
 
     def _device_pose(self, T: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(T, dtype=np.float32),
@@ -167,18 +173,34 @@ class FrontEnd:
 
         # "scan match:align" block (map_builder.cc:311-354)
         with prof.block("scan match:align"):
-            T_align, score, source = _frontend_align(
-                pc, self.target, self._device_pose(guess),
-                self._device_pose(np_se3.inverse(self.accumulative)),
-                compensation=opts.motion_compensation,
-                use_average=opts.use_average,
-                dist_outlier_ratio=opts.dist_outlier_ratio,
-                max_iteration=opts.max_iteration, tile=opts.nn_tile)
+            accum_inv = np_se3.inverse(self.accumulative)
+            if self.matcher is None:
+                T_align, score, source = _frontend_align(
+                    pc, self.target, self._device_pose(guess),
+                    self._device_pose(accum_inv),
+                    compensation=opts.motion_compensation,
+                    use_average=opts.use_average,
+                    dist_outlier_ratio=opts.dist_outlier_ratio,
+                    max_iteration=opts.max_iteration, tile=opts.nn_tile)
+            else:
+                source = (pc.motion_compensate(
+                    self._device_pose(accum_inv @ guess))
+                    if opts.motion_compensation else pc)
+                self.matcher.set_input_source(source)
+                T_align, score = self.matcher.align(self._device_pose(guess))
             # T and score come back in one transfer: one sync per scan
             host = torch.cat([T_align.reshape(-1), score.reshape(1)]
                              ).cpu().double().numpy()
         align_result = np_se3.normalize_rotation(host[:16].reshape(4, 4))
         self.last_score = float(host[16])
+        if self.matcher is not None and opts.motion_compensation:
+            # average with the guess on the host in float64, then
+            # re-compensate the raw scan by accum⁻¹·result
+            if opts.use_average:
+                align_result = np_se3.average_transforms(
+                    [align_result, guess])
+            source = pc.motion_compensate(
+                self._device_pose(accum_inv @ align_result))
 
         pose_source = self.pose_target @ align_result
         self.accumulative = align_result

@@ -151,6 +151,12 @@ class MapBuilder:
         self.backend = backend
         self.device = resolve_device(device)
         if self.options.pipelined:
+            if self.options.front_end.matcher_type not in (3, 5, 6):
+                raise ValueError(
+                    "pipelined=True supports matcher types 3/5/6, got "
+                    f"matcher_type={self.options.front_end.matcher_type}; "
+                    "use pipelined=False for type 1 (IcpUsingPointMatcher, "
+                    "registrators/interface.cc:139-173 registry)")
             # gyro samples ride with each chunk and drive the rotation
             # prediction on the device
             self.options.front_end.use_imu = self.options.use_imu

@@ -13,9 +13,9 @@ up order-free and are clamped once at output.
 On the device, ``_scan_events`` turns one scan into per-voxel aggregates:
 - the 3-key lexicographic sort is three stable sorts (``ops/voxel.py``),
   invalid events last;
-- ``segment_sum`` is ``index_add_`` and ``segment_max`` is
-  ``scatter_reduce(..., "amax")``.  On the GPU the float sums add with
-  atomics in a run-dependent order; keys and counts are exact.
+- ``segment_sum`` is ``ops/voxel.py::_segment_sum`` (each voxel summed in
+  event order, the GPU's sums the CPU's) and ``segment_max`` is
+  ``scatter_reduce(..., "amax")``; keys and counts are exact.
 ``_scan_events_packed`` keeps the JAX package's int16 packing (keys clipped
 to ±32767, counts to 65535), and the host reads back only the valid prefix.
 
@@ -119,7 +119,7 @@ def _scan_events(xyz: torch.Tensor, mask: torch.Tensor,
     miss_f = (sv & ~sh).to(f32)
     sums = voxel_ops._segment_sum(
         torch.stack([hit_f, miss_f, sx * hit_f, sy * hit_f, sz * hit_f,
-                     si * hit_f], dim=1), seg, m)
+                     si * hit_f], dim=1), seg, m, sv)
     max_int = torch.full((m,), -math.inf, dtype=f32, device=dev)
     max_int.scatter_reduce_(0, seg, torch.where(sh, si, -1.0), "amax")
     keys_out = torch.full((m, 3), -2**31, dtype=torch.int32, device=dev)

@@ -1,18 +1,19 @@
 """Device-resident chunked front end — the PyTorch counterpart of
-``staticmapping_tpu.builder.pipeline`` for matcher type 6.
+``staticmapping_tpu.builder.pipeline`` for matcher types 6, 5 and 3.
 
-The front-end state (ICP target + normals, pose_target, CTRV velocities)
+The front-end state (the matcher's target, pose_target, CTRV velocities)
 lives on the device.  Scans are buffered into chunks of K; each chunk is
 packed on the host into one int16 array (xyz at 1/256 m, intensity at
 1/64 — kept for parity with the JAX package), copied to the device on a
 stage thread, and advanced scan by scan: filter chain → motion
-compensation → point-to-plane ICP → motion filter → keyframe target switch.
+compensation → alignment → motion filter → keyframe target switch.
 The JAX package runs that as one ``lax.scan`` with a ``lax.cond`` target
 switch; here it is a Python loop that reads the keyframe flag on the host
-once per scan and builds normals only for keyframes, and skips the padded
-slots of a partial chunk, which the host knows.  The host keeps a float64
-base pose; the device works chunk-locally in f32 and re-bases its own state
-at the start of every chunk.
+once per scan and builds the target only for keyframes, and skips the
+padded slots of a partial chunk, which the host knows.  The host keeps a
+float64 base pose; the device works chunk-locally in f32 and re-bases its
+pose state at the start of every chunk (the target stays in its
+keyframe's frame).
 
 Semantics follow the sequential front end (map_builder.cc:260-397) with the
 JAX package's documented deviations: CTRV velocity from the last two poses,
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import math
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,7 +31,11 @@ import torch
 from .. import resolve_device
 from ..common import np_se3, prof, se3
 from ..data.cloud import PAD_COORD, NormalCloud, PointCloud
+from ..ops.voxel import voxel_downsample
+from ..registration.gicp import GicpCloud, align_gicp, compute_point_normals
 from ..registration.icp_fast import align_point_to_plane
+from ..registration.ndt import NdtMap, align_ndt, build_ndt_map
+from ..registration.ndt_gicp import NdtWithGicp
 from .frame import Frame
 from .frontend import FrontEndOptions, _target_normals
 
@@ -81,25 +86,61 @@ def _unpack_chunk(qdata: torch.Tensor, meta: torch.Tensor):
 
 
 def _matcher_pack(opts: FrontEndOptions):
-    """(make_target, align) functions for the configured matcher."""
-    if opts.matcher_type != 6:
-        raise NotImplementedError(
-            f"matcher type {opts.matcher_type}: the chunked front end of "
-            "staticmapping_torch supports type 6 only; types 3 and 5 are "
-            "ROADMAP.md queue A item 13")
+    """(make_target, align) functions for the configured matcher:
 
-    def make_target(src: PointCloud):
-        return _target_normals(src, leaf_size=opts.target_leaf_size)
+      type 6  IcpFast      normals target + point-to-plane ICP
+      type 5  Ndt          voxel-Gaussian field + GN on NDT weights
+      type 3  NdtWithGicp  NDT coarse stage chained into GICP refinement
+              (ndt_gicp.cc:55-112: voxel filter 0.2, NDT res 1.0 / eps
+              0.01 / 35 iterations, an NDT score under the gate keeps the
+              guess, GICP 35 iterations)
+    """
+    t = opts.matcher_type
+    if t == 6:
+        def make_target(src: PointCloud):
+            return _target_normals(src, leaf_size=opts.target_leaf_size)
 
-    def align(src, target, guess):
-        return align_point_to_plane(
-            src, target, guess, dist_outlier_ratio=opts.dist_outlier_ratio,
-            max_iteration=opts.max_iteration, tile=opts.nn_tile)
-    return make_target, align
+        def align(src, target, guess):
+            return align_point_to_plane(
+                src, target, guess,
+                dist_outlier_ratio=opts.dist_outlier_ratio,
+                max_iteration=opts.max_iteration, tile=opts.nn_tile)
+        return make_target, align
+    if t == 5:
+        def make_target(src: PointCloud):
+            return build_ndt_map(src, 1.0, min_points=4)
+
+        def align(src, target, guess):
+            return align_ndt(src, target, guess,
+                             max_iteration=min(opts.max_iteration, 35))
+        return make_target, align
+    if t == 3:
+        ndt_min_score = NdtWithGicp.ndt_min_score
+
+        def make_target(src: PointCloud):
+            f = voxel_downsample(src, 0.2)
+            return (build_ndt_map(f, 1.0, min_points=4),
+                    compute_point_normals(f, k=20))
+
+        def align(src, target, guess):
+            ndt_map, tgt_gicp = target
+            srcf = voxel_downsample(src, 0.2)
+            T_ndt, s_ndt = align_ndt(srcf, ndt_map, guess, max_iteration=35)
+            # NDT diverged: keep the caller's guess (ndt_gicp.cc:106-109),
+            # chosen on the device
+            ndt_guess = torch.where(s_ndt >= ndt_min_score, T_ndt, guess)
+            return align_gicp(compute_point_normals(srcf, k=20), tgt_gicp,
+                              ndt_guess, max_iteration=35)
+        return make_target, align
+    raise ValueError(
+        f"the chunked front end supports matcher types 3/5/6, got {t} "
+        "(type 1 IcpUsingPointMatcher runs on the sequential front end)")
 
 
 class _FeState(NamedTuple):
-    target: NormalCloud          # current ICP target
+    # the matcher's target, held in its keyframe's frame: a NormalCloud
+    # (type 6), an NdtMap (type 5) or an (NdtMap, GicpCloud) pair (type 3)
+    target: Union[NormalCloud, NdtMap, Tuple[NdtMap, GicpCloud]]
     pose_target: torch.Tensor    # [4, 4] chunk-local
     prev_pose: torch.Tensor      # [4, 4] chunk-local (newest pose)
     prev_stamp: torch.Tensor     # scalar f32 (seconds since first scan)

@@ -3,8 +3,8 @@
 This system has no weights: its state is point clouds, the chunked front
 end's ``_FeState``, the sequential front end's poses and target, and the
 back end's pose graph.  The functions here build the port's ``PointCloud``,
-``NormalCloud``, ``_FeState`` and ``PoseGraph`` (and a pose-graph solver's
-argument tuple) from any object with the same field names (the JAX
+``NormalCloud``, ``NdtMap``, ``GicpCloud``, ``_FeState`` and ``PoseGraph``
+(and a pose-graph solver's argument tuple) from any object with the same field names (the JAX
 package's dataclasses and NamedTuples, or plain mappings) whose leaves
 convert with ``numpy.asarray``, load a sequential ``FrontEnd`` from another
 one's state, and turn the port's objects back into nested dicts of numpy
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Any, Dict
+from typing import Any
 
 import numpy as np
 import torch
@@ -26,9 +26,12 @@ from .backend import pose_graph as pg
 from .builder.frontend import FrontEnd
 from .builder.pipeline import _FeState
 from .data.cloud import NormalCloud, PointCloud
+from .registration.gicp import GicpCloud
+from .registration.ndt import NdtMap
 
 _CLOUD_FIELDS = ("xyz", "intensity", "factor", "mask")
 _NORMAL_FIELDS = ("xyz", "normals", "mask")
+_NDT_FIELDS = NdtMap._fields
 _STATE_FIELDS = ("pose_target", "prev_pose", "prev_stamp", "vel_lin",
                  "vel_ang", "has_velocity")
 
@@ -57,28 +60,55 @@ def normal_cloud(src, device=None) -> NormalCloud:
                          for f in _NORMAL_FIELDS))
 
 
-def fe_state(src, device=None) -> _FeState:
-    """The port's type-6 front-end state from ``src`` (a ``_FeState`` whose
-    target is a normal cloud)."""
+def ndt_map(src, device=None) -> NdtMap:
+    """The port's ``NdtMap`` from ``src`` (fields key, mean, inv_cov, valid,
+    origin, resolution), so that both packages can align on one identical
+    field."""
     dev = resolve_device(device)
-    return _FeState(normal_cloud(_field(src, "target"), dev),
+    return NdtMap(*(_tensor(_field(src, f), dev) for f in _NDT_FIELDS))
+
+
+def _target(src, dev: torch.device):
+    """A front-end target: a normal cloud (type 6), an NDT map (type 5) or
+    an (NDT map, GICP cloud) pair (type 3)."""
+    if isinstance(src, tuple) and not hasattr(src, "_fields"):
+        ndt, gicp = src
+        return (ndt_map(ndt, dev),
+                GicpCloud(*(_tensor(_field(gicp, f), dev)
+                            for f in _NORMAL_FIELDS)))
+    if "inv_cov" in (src if isinstance(src, dict) else dir(src)):
+        return ndt_map(src, dev)
+    return normal_cloud(src, dev)
+
+
+def fe_state(src, device=None) -> _FeState:
+    """The port's front-end state from ``src`` (a ``_FeState`` whose target
+    is a normal cloud, an NDT map or an (NDT map, GICP cloud) pair)."""
+    dev = resolve_device(device)
+    return _FeState(_target(_field(src, "target"), dev),
                     *(_tensor(_field(src, f), dev) for f in _STATE_FIELDS))
 
 
 def load_frontend(front_end: FrontEnd, src) -> None:
     """Give the port's sequential ``front_end`` the state of ``src`` (the
     JAX package's ``FrontEnd``, or any object with its attributes): the
-    keyframe pose, the motion accumulated since it, the target normal cloud
-    (onto ``front_end.device``), the counters, and the extrapolator's pose
-    queue and pose-derived velocities.  The IMU tracker's state is not
-    carried."""
+    keyframe pose, the motion accumulated since it, the target (onto
+    ``front_end.device``: the normal cloud of type 6, or the compacted scan
+    that a factory matcher is then given as its target), the counters, and
+    the extrapolator's pose queue and pose-derived velocities.  The IMU
+    tracker's state is not carried."""
     for name in ("pose_target", "accumulative"):
         setattr(front_end, name, np.array(_field(src, name), dtype=np.float64))
     for name in ("got_first", "last_score", "num_scans"):
         setattr(front_end, name, _field(src, name))
     target = _field(src, "target")
-    front_end.target = (None if target is None
-                        else normal_cloud(target, front_end.device))
+    if target is None:
+        front_end.target = None
+    elif front_end.matcher is None:
+        front_end.target = normal_cloud(target, front_end.device)
+    else:
+        front_end.target = point_cloud(target, front_end.device)
+        front_end.matcher.set_input_target(front_end.target)
     ex_src, ex = _field(src, "extrapolator"), front_end.extrapolator
     ex.timed_pose_queue = collections.deque(
         (float(t), np.array(T, dtype=np.float64))
@@ -125,12 +155,19 @@ def solver_args(args, device=None) -> tuple:
     return tuple(out)
 
 
-def to_numpy(obj) -> Dict[str, Any]:
-    """A ``PointCloud``, ``NormalCloud`` or ``_FeState`` of the port as a
-    nested dict of numpy arrays, keyed by field name."""
+def to_numpy(obj):
+    """A ``PointCloud``, ``NormalCloud``, ``GicpCloud``, ``NdtMap`` or
+    ``_FeState`` of the port as a nested dict of numpy arrays, keyed by
+    field name (an (NDT map, GICP cloud) target as a pair of them)."""
     if isinstance(obj, _FeState):
         out = {f: obj._asdict()[f].cpu().numpy() for f in _STATE_FIELDS}
         out["target"] = to_numpy(obj.target)
         return out
-    fields = _CLOUD_FIELDS if isinstance(obj, PointCloud) else _NORMAL_FIELDS
+    if isinstance(obj, tuple) and not hasattr(obj, "_fields"):
+        return tuple(to_numpy(o) for o in obj)
+    if isinstance(obj, NdtMap):
+        fields = _NDT_FIELDS
+    else:
+        fields = (_CLOUD_FIELDS if isinstance(obj, PointCloud)
+                  else _NORMAL_FIELDS)
     return {f: getattr(obj, f).cpu().numpy() for f in fields}

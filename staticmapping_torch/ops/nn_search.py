@@ -41,15 +41,34 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _dist2_block(query: torch.Tensor, target_tile: torch.Tensor):
+def _dist2_block(query: torch.Tensor, target_tile: torch.Tensor,
+                 q2: Optional[torch.Tensor] = None,
+                 t2: Optional[torch.Tensor] = None,
+                 out: Optional[list] = None):
     """``[..., M, 3] × [..., T, 3] → [..., M, T]`` squared distances by
-    the ``|q|² + |t|² − 2 q·t`` expansion.  The [M, T] passes run in place
-    on one buffer; ``sub_(cross, alpha=2)`` rounds as ``− 2.0 * cross``
-    does, since doubling is exact."""
-    q2 = torch.sum(query * query, dim=-1, keepdim=True)              # [M, 1]
-    t2 = torch.sum(target_tile * target_tile, dim=-1)[..., None, :]  # [1, T]
-    cross = query @ target_tile.transpose(-1, -2)                    # [M, T]
-    return (q2 + t2).sub_(cross, alpha=2.0).clamp_min_(0.0)
+    the ``|q|² + |t|² − 2 q·t`` expansion.  ``q2 [..., M, 1]`` and
+    ``t2 [..., 1, T]``, where given, are |q|² and |t|² computed once by
+    the caller; a |t|² of +inf gives that target a d² of +inf.  The
+    passes write into two [..., M, T] buffers kept in the list ``out``
+    from call to call (on the CPU a fresh buffer a call costs page faults
+    as long as the passes), so the result lives until the next call.
+    ``sub_(cross, alpha=2)`` rounds as ``− 2.0 * cross`` does, since
+    doubling is exact."""
+    if q2 is None:
+        q2 = torch.sum(query * query, dim=-1, keepdim=True)
+    if t2 is None:
+        t2 = torch.sum(target_tile * target_tile, dim=-1)[..., None, :]
+    shape = (torch.broadcast_shapes(query.shape[:-2], target_tile.shape[:-2])
+             + (query.shape[-2], target_tile.shape[-2]))
+    if out is None:
+        out = []
+    if not out or out[0].shape != shape:
+        out[:] = [torch.empty(shape, dtype=query.dtype, device=query.device)
+                  for _ in range(2)]
+    d2, cross = out
+    torch.matmul(query, target_tile.transpose(-1, -2), out=cross)
+    torch.add(q2, t2, out=d2)
+    return d2.sub_(cross, alpha=2.0).clamp_min_(0.0)
 
 
 def _nearest_plain(query: torch.Tensor, tgt: torch.Tensor,
@@ -58,17 +77,22 @@ def _nearest_plain(query: torch.Tensor, tgt: torch.Tensor,
     rows already far away), ``target_mask [..., N]`` → ``(d2 [..., M] f32,
     idx [..., M] int32)``.  Ties go to the lowest index, as in
     ``_nearest_scan``: ``min`` returns the first minimum of a tile and a
-    later tile must be strictly better."""
+    later tile must be strictly better.  An invalid target's |t|² is +inf,
+    so its d² is +inf."""
     n = tgt.shape[-2]
     batch = torch.broadcast_shapes(query.shape[:-2], tgt.shape[:-2])
     shape = batch + query.shape[-2:-1]
     best_d = torch.full(shape, float("inf"), dtype=torch.float32,
                         device=query.device)
     best_i = torch.zeros(shape, dtype=torch.int32, device=query.device)
+    q2 = torch.sum(query * query, dim=-1, keepdim=True)              # [M, 1]
+    t2 = torch.sum(tgt * tgt, dim=-1).masked_fill(
+        ~target_mask, float("inf"))[..., None, :]                    # [1, N]
+    bufs = []
     for start in range(0, n, tile):
         stop = min(start + tile, n)
-        d2 = _dist2_block(query, tgt[..., start:stop, :])
-        d2.masked_fill_(~target_mask[..., None, start:stop], float("inf"))
+        d2 = _dist2_block(query, tgt[..., start:stop, :], q2,
+                          t2[..., start:stop], bufs)
         tile_best, tile_arg = torch.min(d2, dim=-1)
         take = tile_best < best_d
         best_d = torch.where(take, tile_best, best_d)
@@ -243,7 +267,8 @@ def nearest_1(query: torch.Tensor, target: torch.Tensor,
                       torch.full_like(target, _FAR))
     if query.is_cuda:
         return _nearest_cuda(query.contiguous(), tgt.contiguous())
-    return _nearest_plain(query, tgt, target_mask, tile=min(tile, tgt.shape[-2]))
+    return _nearest_plain(query, tgt, target_mask,
+                          tile=min(tile, tgt.shape[-2]))
 
 
 def gather_rows(payload: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -265,25 +290,20 @@ def nearest_select(query: torch.Tensor, target: torch.Tensor,
 
 def knn(query: torch.Tensor, target: torch.Tensor, target_mask: torch.Tensor,
         k: int, tile: int = 1024):
-    """k-NN: returns ``(d2 [M, k], idx [M, k])`` sorted ascending by d2."""
-    n = target.shape[0]
-    m = query.shape[0]
+    """k-NN: returns ``(d2 [M, k], idx [M, k])`` sorted ascending by d2.
+    The queries go ``tile`` at a time, each block's d² to every target
+    in one pass and one ``topk``."""
     tgt = torch.where(target_mask[:, None], target,
                       torch.full_like(target, _FAR))
-    best_d = torch.full((m, k), float("inf"), dtype=torch.float32,
-                        device=query.device)
-    best_i = torch.zeros((m, k), dtype=torch.int32, device=query.device)
-    for start in range(0, n, tile):
-        stop = min(start + tile, n)
-        d2 = _dist2_block(query, tgt[start:stop])
-        d2 = torch.where(target_mask[None, start:stop], d2, float("inf"))
-        idx = torch.arange(start, stop, dtype=torch.int32,
-                           device=query.device).expand(m, stop - start)
-        cat_d = torch.cat([best_d, d2], dim=1)
-        cat_i = torch.cat([best_i, idx], dim=1)
-        best_d, pos = torch.topk(cat_d, k, dim=1, largest=False, sorted=True)
-        best_i = torch.gather(cat_i, 1, pos)
-    return best_d, best_i
+    t2 = torch.sum(tgt * tgt, dim=-1).masked_fill(
+        ~target_mask, float("inf"))[None, :]
+    out_d, out_i, bufs = [], [], []
+    for start in range(0, query.shape[0], tile):
+        d2 = _dist2_block(query[start:start + tile], tgt, t2=t2, out=bufs)
+        d, i = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+        out_d.append(d)
+        out_i.append(i.to(torch.int32))
+    return torch.cat(out_d), torch.cat(out_i)
 
 
 def masked_quantile(values: torch.Tensor, mask: torch.Tensor, q):

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from ..common import se3
+from ..common.trips import TripCounter
 from ..data.cloud import PAD_COORD, PointCloud
 from ..ops import nn_search
 from ..ops.normals import smallest_eigvec3
@@ -37,6 +38,10 @@ from ..ops.normals import smallest_eigvec3
 _EPS_DISK = 1e-3   # Segal's ε: covariance thickness along the normal
 # trips between host reads of ``converged`` in the while form
 _WHILE_CHECK_EVERY = 4
+
+# GICP trips executed ("run") and trips to convergence ("needed") since the
+# last ``trips.reset()``
+trips = TripCounter()
 
 
 class GicpCloud(NamedTuple):
@@ -193,13 +198,14 @@ def align_gicp(source: GicpCloud, target: GicpCloud, guess: torch.Tensor,
     state = _GicpState(eye4, torch.zeros((), dtype=torch.int32, device=dev),
                        torch.zeros((), dtype=torch.bool, device=dev), zero,
                        eye4, torch.full((), -float("inf"), device=dev), zero)
-    trips = 0
-    while trips < max_iteration:
-        for _ in range(min(check_every, max_iteration - trips)):
+    run = 0
+    while run < max_iteration:
+        for _ in range(min(check_every, max_iteration - run)):
             state = frozen_body(state)
-            trips += 1
-        if trips < max_iteration and bool(state.converged):
+            run += 1
+        if run < max_iteration and bool(state.converged):
             break
+    trips.add(run, state.it)
     # evaluate the last iterate too, then return the best-seen pose
     _, d2, _, keep = match(state.T_iter)
     obj_f, score_f = fitness(d2, keep)

@@ -3,26 +3,26 @@
 registrators/icp_fast.{h,cc}; "type 6").
 
 Iteration structure (icp_fast.cc:455-529): demean the target; move the
-source by ``T_target_mean⁻¹·guess``; iterate {transform, 1-NN, quantile
-outlier trim at ``dist_outlier_ratio``, weighted point-to-plane normal
-equations ``A = wF·Fᵀ``, ``b = −wF·(δ·n)``, solve, left-multiply}; converge
-when the last-4 smoothed rotation / translation deltas fall below (0.001
-rad, 0.01 m) (cc:377-405).
+source by ``T_target_mean⁻¹·guess``; iterate {transform (or per-point
+motion-compensate), 1-NN, quantile outlier trim at ``dist_outlier_ratio``,
+weighted point-to-plane normal equations ``A = wF·Fᵀ``, ``b = −wF·(δ·n)``,
+solve, left-multiply}; converge when the last-4 smoothed rotation /
+translation deltas fall below (0.001 rad, 0.01 m) (cc:377-405).
 
 A batch axis is written into every step (the JAX package vmaps instead):
 ``align_point_to_plane`` takes one pair or ``B`` pairs, and each pair
-freezes on its own ``converged`` flag.  The JAX package's per-point
-compensation inside the ICP, its exact-quantile trim and the stateful
-``IcpFast`` wrapper have no caller on the ported path and are not ported
-yet (ROADMAP.md queue A items 6 and 7).
+freezes on its own ``converged`` flag.  ``IcpFast`` is the stateful
+matcher of the factory's type 6.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, NamedTuple
 
 import torch
 
 from ..common import se3
+from ..common.trips import TripCounter
 from ..data.cloud import PointCloud, NormalCloud
 from ..ops import nn_search
 
@@ -37,25 +37,20 @@ _WHILE_CHECK_EVERY = 4
 
 # ICP trips since the last reset_trips(), per trip form ("while", "fixed"),
 # summed over pairs: "run" counts the trips executed, "needed" the trips
-# each pair took to converge (its ``it``).  "run" is a host count; "needed"
-# adds up on the device and is read by trip_counts(), so counting costs no
-# host sync.
-_trips_run: Dict[str, int] = {"while": 0, "fixed": 0}
-_trips_needed: Dict[str, torch.Tensor] = {}
+# each pair took to converge (its ``it``)
+_trips: Dict[str, TripCounter] = {"while": TripCounter(),
+                                  "fixed": TripCounter()}
 
 
 def reset_trips() -> None:
-    for k in _trips_run:
-        _trips_run[k] = 0
-    _trips_needed.clear()
+    for counter in _trips.values():
+        counter.reset()
 
 
 def trip_counts() -> Dict[str, Dict[str, int]]:
     """``{form: {"run": trips executed, "needed": trips to convergence}}``
     since the last :func:`reset_trips`."""
-    return {k: {"run": run, "needed": int(_trips_needed[k])
-                if k in _trips_needed else 0}
-            for k, run in _trips_run.items()}
+    return {k: counter.counts() for k, counter in _trips.items()}
 
 
 class _IcpState(NamedTuple):
@@ -103,6 +98,8 @@ def align_point_to_plane(
     return_aux: bool = False,
     fixed_iterations: int = 0,
     score_spacing_ref: float = 0.0,
+    compensation: bool = False,
+    exact_quantile: bool = False,
 ):
     """Align ``source`` onto ``target``; returns ``(T [4,4], score)`` for one
     pair, or ``(T [B,4,4], score [B])`` when every argument carries a
@@ -120,6 +117,12 @@ def align_point_to_plane(
     ``score_spacing_ref > 0`` reports the density-normalized fitness
     ``exp(−avg_dist · ref / target_spacing)``; 0 keeps the raw
     ``exp(−avg_dist)`` (icp_fast.cc:518-521).
+
+    ``compensation`` moves each source point by its own share (its
+    ``factor``) of the current iterate, slerped rotation and lerped
+    translation, and weighs its normal-equation row by that share.
+    ``exact_quantile`` trims at the sorted quantile (``masked_quantile``)
+    instead of the bisection's upper bound.
     """
     batched = source.xyz.dim() == 3
     if not batched:
@@ -161,8 +164,17 @@ def align_point_to_plane(
         tgt_q, tmask_q, payload_q = tgt_pts[0], tmask[0], tgt_payload[0]
 
     def body(state: _IcpState) -> _IcpState:
-        # step 0: move source by current iterate
-        step_pts = se3.apply(state.T_iter, src0)
+        # step 0: move source by current iterate, or by each point's share
+        # of it
+        if compensation:
+            q_iter = se3.matrix_to_quat(se3.rotation(state.T_iter))
+            qi = se3.quat_identity(f32, dev).expand(q_iter.shape)
+            f = source.factor[..., None]                      # [B, N, 1]
+            q_pp = se3.slerp(qi[:, None, :], q_iter[:, None, :], f)
+            step_pts = (se3.quat_rotate(q_pp, src0)
+                        + se3.translation(state.T_iter)[:, None, :] * f)
+        else:
+            step_pts = se3.apply(state.T_iter, src0)
 
         # step 1: correspondences (FindClosests, cc:169-180); the kernel's
         # d² is selection-grade, so recompute it exactly from the match
@@ -176,15 +188,21 @@ def align_point_to_plane(
         d2 = torch.sum(diff * diff, dim=-1)
         d2 = torch.where(src_mask, d2, float("inf"))
 
-        # step 2: trimmed outlier rejection (cc:496-498), by the bisection
-        # upper bound of the quantile
-        limit = nn_search.masked_quantile_fast(d2, src_mask,
-                                               dist_outlier_ratio)
+        # step 2: trimmed outlier rejection (cc:496-498), by the sorted
+        # quantile or the bisection's upper bound of it
+        if exact_quantile:
+            limit = nn_search.masked_quantile(d2, src_mask,
+                                              dist_outlier_ratio)
+        else:
+            limit = nn_search.masked_quantile_fast(d2, src_mask,
+                                                   dist_outlier_ratio)
         w = ((d2 <= limit[:, None]) & src_mask).to(f32)
 
         # step 3: point-to-plane normal equations (ComputePointToPlane)
         cross = torch.linalg.cross(step_pts, nrm, dim=-1)
         F = torch.cat([cross, nrm], dim=-1)                   # [B, N, 6]
+        if compensation:
+            F = F * source.factor[..., None]
         wF = F * w[..., None]
         A = wF.transpose(-1, -2) @ F                          # [B, 6, 6]
         dot = torch.sum(diff * nrm, dim=-1)
@@ -246,10 +264,7 @@ def align_point_to_plane(
                 trips += 1
             if bool(state.converged.all()):
                 break
-    _trips_run[form] += trips * nb
-    needed = state.it.sum(dtype=torch.int64)
-    _trips_needed[form] = (needed + _trips_needed[form].to(dev)
-                           if form in _trips_needed else needed)
+    _trips[form].add(trips * nb, state.it)
 
     result = T_mean @ state.T_iter @ T_init
     score, it = state.score, state.it
@@ -259,3 +274,42 @@ def align_point_to_plane(
         return result, score, it
     return result, score
 
+
+
+@dataclasses.dataclass
+class IcpFast:
+    """Stateful "type 6" matcher with the ``registrator::Interface`` API
+    (registrators/interface.h:67-116): set_input_source / set_input_target
+    / align.  Options: icp_fast.h:56-60."""
+
+    knn_normal_estimate: int = 7   # kept for config parity (unused, as in
+    #                                the reference)
+    max_iteration: int = 100
+    dist_outlier_ratio: float = 0.7
+    tile: int = 1024
+    inner_compensation: bool = False
+    exact_quantile: bool = False
+
+    TYPE = 6  # registrator::Type::kFastIcp (interface.h:41-50)
+
+    _source: PointCloud = None
+    _target: NormalCloud = None
+    final_score: float = 0.0
+
+    def set_input_source(self, cloud: PointCloud):
+        self._source = cloud
+
+    def set_input_target(self, target: NormalCloud):
+        self._target = target
+
+    def align(self, guess: torch.Tensor):
+        if self._source is None or self._target is None:
+            raise ValueError("set the source and the target before align")
+        T, score = align_point_to_plane(
+            self._source, self._target, guess,
+            dist_outlier_ratio=self.dist_outlier_ratio,
+            max_iteration=self.max_iteration, tile=self.tile,
+            compensation=self.inner_compensation,
+            exact_quantile=self.exact_quantile)
+        self.final_score = score
+        return T, score

@@ -7,6 +7,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from staticmapping_tpu import config as jconfig
 from staticmapping_torch import config as tconfig
@@ -121,11 +122,58 @@ def test_cli_runs_the_backend_on_the_synthetic_square(tmp_path, monkeypatch):
     assert np.isfinite(written).all()
 
 
-def test_unported_filter_names_raise():
-    cfg = tconfig.load_config(None)
-    cfg.filters = [("GroundRemoval2", {})]
-    with pytest.raises(KeyError, match="item 16"):
-        tconfig.build_filter_chain(cfg)
+def test_chain_of_all_ten_filters_builds():
+    """A config whose chain names all ten filters of the registry builds a
+    chain of the JAX package's classes in its order, which runs on a
+    cloud."""
+    from staticmapping_tpu.filters import FILTER_REGISTRY
+    from staticmapping_torch.data import cloud as tcloud
+    names = sorted(FILTER_REGISTRY)
+    xml = ('<edward_liu><static_mapping><filters>'
+           + "".join(f'<filter name="{n}"/>' for n in names)
+           + '</filters></static_mapping></edward_liu>')
+    cj, ct = jconfig.load_config(xml), tconfig.load_config(xml)
+    assert [n for n, _ in ct.filters] == [n for n, _ in cj.filters] == names
+    chain_t, chain_j = (tconfig.build_filter_chain(ct),
+                        jconfig.build_filter_chain(cj))
+    assert ([type(f).__name__ for f in chain_t.filters]
+            == [type(f).__name__ for f in chain_j.filters])
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-20, 20, (3000, 3)).astype(np.float32)
+    out = chain_t(tcloud.from_numpy(pts, capacity=4096, device="cpu"))
+    assert out.xyz.shape == (4096, 3)
+    assert torch.isfinite(out.xyz[out.mask]).all()
+
+
+@pytest.mark.parametrize("matcher_type", [1, 3, 5])
+def test_matcher_types_flow_through_the_config(matcher_type):
+    """``scan_matcher_options type`` 1, 3 and 5, with the registrator
+    params every type takes, load into equal option values in both
+    packages, pass ``check_options`` and build a front end whose matcher
+    is the JAX package's class; types 3 and 5 build the chunked front end
+    too."""
+    xml = ('<edward_liu><static_mapping><front_end_options>'
+           f'<scan_matcher_options type="{matcher_type}">'
+           f'<registrator_options type="{matcher_type}">'
+           '<param name="max_iteration"> 20 </param>'
+           '<param name="dist_outlier_ratio"> 0.6 </param>'
+           '</registrator_options></scan_matcher_options>'
+           '</front_end_options></static_mapping></edward_liu>')
+    cj, ct = jconfig.load_config(xml), tconfig.load_config(xml)
+    assert dataclasses.asdict(ct) == dataclasses.asdict(cj)
+    fe = ct.map_builder.front_end
+    assert (fe.matcher_type, fe.max_iteration, fe.dist_outlier_ratio) == (
+        matcher_type, 20, 0.6)
+    tconfig.check_options(ct)
+    mb_t = tconfig.build_map_builder(ct, with_backend=False, device="cpu")
+    mb_j = jconfig.build_map_builder(cj, with_backend=False)
+    assert (type(mb_t.front_end.matcher).__name__
+            == type(mb_j.front_end.matcher).__name__)
+    if matcher_type != 1:
+        ct.map_builder.pipelined = True
+        mb = tconfig.build_map_builder(ct, with_backend=False, device="cpu")
+        assert mb.front_end.options.matcher_type == matcher_type
+        mb.front_end.close()
 
 
 def test_urdf_extrinsics_lookup():

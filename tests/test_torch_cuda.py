@@ -658,3 +658,169 @@ def test_short_cli_run_with_the_backend(cuda_device, tmp_path):
     assert len(mb.backend.loop_detector.frames) == len(full)
     poses = kitti.read_poses(str(tmp_path / "kitti_pose.txt"))
     assert len(poses) == len(mb.trajectory) and np.isfinite(poses).all()
+
+
+def _scene(rng, n=4096):
+    """A floor, two walls and a sloped roof within 11 m of the origin."""
+    per = n // 4
+    x = rng.uniform(-10, 10, per)
+    parts = [
+        np.column_stack([rng.uniform(-10, 10, per),
+                         rng.uniform(-10, 10, per),
+                         0.02 * rng.standard_normal(per)]),
+        np.column_stack([5.0 + 0.02 * rng.standard_normal(per),
+                         rng.uniform(-10, 10, per), rng.uniform(0, 4, per)]),
+        np.column_stack([rng.uniform(-10, 10, per),
+                         -4.0 + 0.02 * rng.standard_normal(per),
+                         rng.uniform(0, 4, per)]),
+        np.column_stack([x, rng.uniform(-10, 10, per),
+                         4.0 + 0.15 * x + 0.02 * rng.standard_normal(per)])]
+    return np.vstack(parts).astype(np.float32)
+
+
+def _moved_pair(seed):
+    """(source, target) point arrays: aligning the source onto the target
+    recovers a 0.3 m, 0.03 rad motion."""
+    from staticmapping_torch.common import np_se3
+    pts = _scene(np.random.default_rng(seed))
+    T = np_se3.from_rt(np_se3.euler_to_matrix(np.array([0.0, 0.0, 0.03])),
+                       np.array([0.3, -0.2, 0.05]))
+    src = (pts - T[:3, 3].astype(np.float32)) @ T[:3, :3].astype(np.float32)
+    return src, pts
+
+
+def _pose_close(T_g, T_c, tol=1e-3):
+    T_g, T_c = T_g.cpu().numpy(), T_c.cpu().numpy()
+    assert np.abs(T_g[:3, 3] - T_c[:3, 3]).max() <= tol
+    assert np.abs(T_g[:3, :3] - T_c[:3, :3]).max() <= tol
+
+
+def test_align_ndt_on_the_gpu_matches_the_cpu(cuda_device):
+    """NDT on one field built on the CPU and moved to the card: T within
+    1e-3 m and 1e-3 rad, the score within 1e-4; the field built on the
+    card has the same keys."""
+    from staticmapping_torch.data import cloud as tcloud
+    from staticmapping_torch.registration import ndt
+    src, tgt = _moved_pair(40)
+    tc = tcloud.from_numpy(tgt, capacity=4096, device="cpu")
+    sc = tcloud.from_numpy(src, capacity=4096, device="cpu")
+    field = ndt.build_ndt_map(tc, 1.0)
+    field_g = ndt.build_ndt_map(
+        tcloud.from_numpy(tgt, capacity=4096, device=cuda_device), 1.0)
+    assert torch.equal(field_g.key.cpu(), field.key)
+    eye = torch.eye(4)
+    T_c, s_c = ndt.align_ndt(sc, field, eye)
+    T_g, s_g = ndt.align_ndt(
+        tcloud.from_numpy(src, capacity=4096, device=cuda_device),
+        ndt.NdtMap(*(x.to(cuda_device) for x in field)),
+        eye.to(cuda_device))
+    _pose_close(T_g, T_c)
+    assert abs(float(s_g) - float(s_c)) <= 1e-4
+
+
+def test_ndt_with_gicp_on_the_gpu_matches_the_cpu(cuda_device):
+    """The type-3 chain (voxel filter, NDT, GICP on the single-pair
+    kernel) on the same clouds: T within 1e-3 m and 1e-3 rad, the score
+    within 1e-3."""
+    from staticmapping_torch.data import cloud as tcloud
+    from staticmapping_torch.registration import NdtWithGicp
+    src, tgt = _moved_pair(41)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        m = NdtWithGicp(voxel_resolution=0.3)
+        m.set_input_target(tcloud.from_numpy(tgt, capacity=4096, device=dev))
+        m.set_input_source(tcloud.from_numpy(src, capacity=4096, device=dev))
+        before = tnn.launches["single"]
+        out[str(dev)] = m.align(torch.eye(4, device=dev))
+        assert (tnn.launches["single"] > before) == (dev != "cpu")
+    (T_c, s_c), (T_g, s_g) = out["cpu"], out[str(cuda_device)]
+    _pose_close(T_g, T_c)
+    assert abs(float(s_g) - float(s_c)) <= 1e-3
+
+
+def test_type3_chunk_on_the_gpu_matches_the_cpu(cuda_device):
+    """One chunk of the chunked type-3 front end from the same first scan
+    on the card and on the CPU: the same keyframe flags, the poses within
+    1e-3 m, the scores within 1e-3."""
+    from staticmapping_torch.builder import frontend, pipeline
+    from staticmapping_torch.io import synthetic
+    scans, _ = synthetic.make_sequence(
+        n_scans=5, seed=4, trajectory="straight", step=0.5,
+        max_points=4000, max_range=30.0)
+    buf = [(0.1 * i, scans[i]) for i in range(1, 5)]
+    q, meta, imu = pipeline._pack_chunk(buf, 0.0, 4, 4096, None)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        fe = pipeline.DeviceFrontEnd(frontend.FrontEndOptions(
+            scan_capacity=4096, nn_tile=512, max_iteration=40,
+            matcher_type=3, motion_compensation=False), chunk_size=4,
+            device=dev)
+        fe.close()
+        fe.process(0.0, scans[0])
+        _, outputs = fe._run_chunk(
+            fe.state, *(torch.from_numpy(a).to(dev) for a in (q, meta, imu)),
+            np.ones(4, dtype=bool))
+        out[str(dev)] = outputs
+    for o_c, o_g in zip(out["cpu"], out[str(cuda_device)]):
+        assert o_c[2] == o_g[2]
+        _pose_close(o_g[0], o_c[0])
+        assert abs(float(o_g[1]) - float(o_c[1])) <= 1e-3
+
+
+def test_kernel_at_the_gicp_stage_shape_keeps_the_contract(cuda_device):
+    """The single-pair kernel at the GICP stage of matcher type 3 (a
+    0.2 m voxel-filtered 32768-slot scan against its keyframe's), held to
+    chip_smoke.py's near-tie contract (``check_one``)."""
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import check_one
+    rng = np.random.default_rng(42)
+    q, t, mask = _problem(rng, (), 32768, 32768, 2048)
+    before = tnn.launches["single"]
+    d, i = tnn.nearest_1(*(torch.from_numpy(x).to(cuda_device)
+                           for x in (q, t, mask)))
+    assert tnn.launches["single"] == before + 1
+    res = check_one(q, t, mask, d.cpu().numpy(), i.cpu().numpy())
+    assert res["ok"], res
+
+
+def test_plane_detector_on_the_gpu_matches_the_cpu(cuda_device):
+    """The plane mask of a 32768-slot cloud (as many voxel slots, more
+    than cuSOLVER's batched eigensolver takes in one call) on the card
+    equals the CPU's on at least 99.9% of the points: the voxel moments
+    are the CPU's bit for bit, but cuSOLVER's eigenvectors round otherwise
+    than LAPACK's, which can move a residual across the 0.1 m inlier
+    bound."""
+    from staticmapping_torch.data import cloud as tcloud
+    from staticmapping_torch.filters import PlaneDetector
+    pts = _boxes(np.random.default_rng(43), n=30000)
+    det = PlaneDetector(leaf_size=2.0, min_point_num_in_voxel=5,
+                        distance_threshold=0.5)
+    want = det.plane_mask(tcloud.from_numpy(pts, capacity=32768,
+                                            device="cpu"))
+    got = det.plane_mask(tcloud.from_numpy(pts, capacity=32768,
+                                           device=cuda_device))
+    assert int(want.sum()) > 1000
+    assert float((got.cpu() == want).float().mean()) >= 0.999
+
+
+def test_voxel_stats_on_the_gpu_equal_the_cpu(cuda_device):
+    """Each voxel's sums run in point order on the card too, so NDT's voxel
+    statistics and a voxel downsample equal the CPU's bit for bit, call
+    after call."""
+    from staticmapping_torch.data import cloud as tcloud
+    from staticmapping_torch.ops import voxel
+    pts = _boxes(np.random.default_rng(44), n=30000) + 40.0
+    cpu = tcloud.from_numpy(pts, capacity=32768, device="cpu")
+    gpu = tcloud.from_numpy(pts, capacity=32768, device=cuda_device)
+    origin = torch.tensor([20.0, 20.0, 30.0])
+    want = voxel.voxel_stats_floor(cpu, 1.0, origin)
+    for _ in range(2):
+        got = voxel.voxel_stats_floor(gpu, 1.0, origin.to(cuda_device))
+        for k in ("count", "mean", "cov", "valid", "voxel_key"):
+            assert torch.equal(got[k].cpu(), want[k]), k
+    ds_c = voxel.voxel_downsample(cpu, 0.2)
+    ds_g = voxel.voxel_downsample(gpu, 0.2)
+    assert torch.equal(ds_g.xyz.cpu(), ds_c.xyz)
+    assert torch.equal(ds_g.mask.cpu(), ds_c.mask)

@@ -182,10 +182,3 @@ def test_submap_grouping():
         assert s.full
         assert s.cloud is not None
         assert int(s.cloud.num_valid()) > 0
-
-
-def test_other_matcher_types_raise():
-    for t in (1, 3, 5):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tfrontend.FrontEnd(tfrontend.FrontEndOptions(matcher_type=t),
-                               device=CPU)

@@ -71,6 +71,31 @@ def test_voxel_sort_puts_invalid_last():
     assert seg.tolist() == [0, 1, 2, 3]
 
 
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_segment_sum_adds_in_point_order(lead):
+    """Each segment of the valid rows is summed from 0 in point order,
+    exactly as a float32 loop adds it; the masked rows (last, one shared
+    id, as ``_sort_by_voxel`` leaves them) add nothing, and every other
+    slot holds 0.  Values span 12 decades so that any other order would
+    round differently."""
+    rng = np.random.default_rng(9)
+    n, c = 257, 4
+    n_valid = rng.integers(100, 200, lead or (1,))
+    seg = np.sort(rng.integers(0, 40, lead + (n,)), axis=-1)
+    mask = np.arange(n) < n_valid.reshape(lead + (1,))
+    seg = np.where(mask, seg, 40)
+    data = (rng.standard_normal(lead + (n, c))
+            * 10.0 ** rng.integers(-6, 6, lead + (n, 1))).astype(np.float32)
+    got = tvoxel._segment_sum(torch.from_numpy(data), torch.from_numpy(seg),
+                              n, torch.from_numpy(mask)).numpy()
+    want = np.zeros(lead + (n, c), np.float32)
+    for row in np.ndindex(*lead):
+        for i in range(n):
+            if mask[row + (i,)]:
+                want[row + (seg[row + (i,)],)] += data[row + (i,)]
+    np.testing.assert_array_equal(got, want)
+
+
 def test_kdsplit_normals_match_jax():
     _, jc = _scan(4, 3500, 4096)
     want = jnormals.estimate_normals(jc.compact(), leaf_size=8)

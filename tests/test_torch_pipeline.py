@@ -200,22 +200,13 @@ def test_memory_manager_offloads_inactive_submaps(tmp_path):
 
 
 def _gate_cases():
-    fe = tfrontend.FrontEndOptions
-    return {
-        "map_package": dict(save_map_package=True),
-        "matcher_type_3": dict(front_end=fe(matcher_type=3)),
-        "matcher_type_5": dict(front_end=fe(matcher_type=5)),
-        "sequential_matcher_type_1": dict(pipelined=False,
-                                          front_end=fe(matcher_type=1)),
-        "sequential_matcher_type_3": dict(pipelined=False,
-                                          front_end=fe(matcher_type=3)),
-    }
+    return {"map_package": dict(save_map_package=True)}
 
 
 @pytest.mark.parametrize("case", sorted(_gate_cases()))
 def test_unported_options_raise(case, tmp_path):
     """Every option whose code is not ported raises NotImplementedError at
-    construction (the map package, matchers other than type 6)."""
+    construction (the map package)."""
     kw = {"pipelined": True, "export_file_path": str(tmp_path),
           **_gate_cases()[case]}
     with pytest.raises(NotImplementedError):
