@@ -36,7 +36,13 @@ compiler per source, all started together), then, one phase after another:
   on, and IcpPM (type 1) through the CLI, each held to an ATE limit from
   the JAX package's run of the same scans; type 5's front end run again on
   the card and on the CPU, the card's keyframes held to the CPU's; then K1
-  at the GICP stage's shape held to its plain version and timed.
+  at the GICP stage's shape held to its plain version and timed;
+- ``outputs`` (``scripts/main_path.py::OUTPUTS_PATH``): the CLI path with
+  the map package on (the package round trip, ``join_pieces``), a
+  sequential run with the back end stopped, checkpointed, reloaded and
+  resumed against an uninterrupted one, and the multi-trajectory merge of
+  two passes on K2; then K2 at the merge's shape held to its plain version
+  and timed.
 Each path's launch counts are set to 0 just before it and read just after.
 Every phase prints one JSON line; the line before the last lists the
 kernels, and the last line is ``{"ok": true, "device": ...}``.  Any failure
@@ -50,16 +56,18 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from scripts.main_path import (BACKEND_PATH, CLI_PATH, MAIN_PATH,
-                               MATCHER_PATH, cli_sequence,
+                               MATCHER_PATH, OUTPUTS_PATH, cli_sequence,
                                configure_matcher_run, loop_gap,
                                matcher_sequence, stamp_matched_ate,
-                               write_kitti_bins, write_matcher_cfg)
+                               write_kitti_bins, write_matcher_cfg,
+                               write_package_cfg)
 from scripts.nn_kernel_times import eager_ms as time_ms, graph_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -119,8 +127,9 @@ BACKEND_SHAPES = {"batched": (18, 65536, 8192), "single": (0, 16384, 16384)}
 # last sixteenth, source hash-thinned) of bench.py:101-107, then the back
 # end's: the loop verifier's batch (3 yaw guesses x 6 candidates, a
 # hash-thinned 65536-slot submap against its 8192-slot leaf-8 normals) and
-# the GICP gate (4x-strided 65536-slot submaps), then type 3's GICP stage
-# (GICP_STAGE_SHAPE)
+# the GICP gate (4x-strided 65536-slot submaps), type 3's GICP stage
+# (GICP_STAGE_SHAPE), then the multi-trajectory merge's batch (MERGE_SHAPE;
+# its sources are not thinned, the check reads the verifier's rows)
 SWEEP_SHAPES = [("512x4096", 1, 512, 4096, 96, False),
                 ("128x128", 1, 128, 128, 0, False),
                 ("1920x2176", 1, 1920, 2176, 0, False),
@@ -129,7 +138,11 @@ SWEEP_SHAPES = [("512x4096", 1, 512, 4096, 96, False),
                 ("B2_65536x65536", 2, 65536, 65536, None, False),
                 ("B18_65536x8192_thinned", 18, 65536, 8192, None, True),
                 ("16384x16384", 1, 16384, 16384, 0, False),
-                ("32768x32768", 1, 32768, 32768, 0, False)]
+                ("32768x32768", 1, 32768, 32768, 0, False),
+                ("B64_65536x8192_thinned", 64, 65536, 8192, None, True)]
+# the exact check of a shape reads every k-th pair of its batch (each check
+# is ~0.45 s of host float64; every pair of the merge's batch took 58 s)
+SWEEP_PAIR_STRIDE = {"B64_65536x8192_thinned": 4}
 
 
 VARIANT_SOURCE = "staticmapping_torch/csrc/nn_variants.cu"
@@ -200,7 +213,7 @@ def thinned_rows(m: int) -> np.ndarray:
 
 def sweep(nn_search) -> None:
     """Both entries over the six shapes of bench.py:101-107, the back
-    end's two and the GICP stage's."""
+    end's two, the GICP stage's and the merge's."""
     rng = np.random.default_rng(0)
     for label, b, m, n, n_invalid, thin in SWEEP_SHAPES:
         q = rng.uniform(-20, 20, (b, m, 3)).astype(np.float32)
@@ -213,12 +226,13 @@ def sweep(nn_search) -> None:
         # batched entry: all pairs in one launch
         d, i = nn_search.nearest_1(qd, td, md)
         d, i = d.cpu().numpy(), i.cpu().numpy()
+        pairs = range(0, b, SWEEP_PAIR_STRIDE.get(label, 1))
         results["batched"] = [check_one(q[k][rows], t[k], mask[k],
                                         d[k][rows], i[k][rows])
-                              for k in range(b)]
+                              for k in pairs]
         # single entry: one launch per pair
         results["single"] = []
-        for k in range(b):
+        for k in pairs:
             d, i = nn_search.nearest_1(qd[k], td[k], md[k])
             results["single"].append(check_one(
                 q[k][rows], t[k], mask[k], d.cpu().numpy()[rows],
@@ -255,13 +269,21 @@ def main_shape_inputs(nn_search, rng, b, m, n):
     return q, t, mask, torch.where(mask[..., None], t, nn_search._FAR)
 
 
-def hold_to_plain(nn_search, q, t, mask, tgt, label: str):
+def hold_to_plain(nn_search, q, t, mask, tgt, label: str, chunk=None):
     """``nearest_1`` against ``_nearest_plain`` on the same card and inputs;
     returns ``(idx agreement, max |d² err|, d_k, i_k)``.  The two forms
     round differently: idx is held to the near-tie share and d² to the
-    plain expansion's own f32 error at 30 m coordinates."""
+    plain expansion's own f32 error at 30 m coordinates.  With ``chunk``
+    the plain version takes that many pairs of the batch a call."""
     d_k, i_k = nn_search.nearest_1(q, t, mask)
-    d_p, i_p = nn_search._nearest_plain(q, tgt, mask)
+    if chunk is None:
+        d_p, i_p = nn_search._nearest_plain(q, tgt, mask)
+    else:
+        parts = [nn_search._nearest_plain(q[s:s + chunk], tgt[s:s + chunk],
+                                          mask[s:s + chunk])
+                 for s in range(0, q.shape[0], chunk)]
+        d_p = torch.cat([d for d, _ in parts])
+        i_p = torch.cat([i for _, i in parts])
     torch.cuda.synchronize()
     agree = float((i_k == i_p).float().mean())
     max_abs_err = float((d_k - d_p).abs().max())
@@ -1150,6 +1172,409 @@ def matchers_path(nn_search) -> dict:
     return {"runs": runs, "twins": twins, "gicp_stage": gicp_stage}
 
 
+# ---------------------------------------------------------------------------
+# the outputs path: map package, checkpoint and resume, multi-trajectory merge
+# ---------------------------------------------------------------------------
+
+# (batch, queries, targets) of the merge's K2 call: MERGE_PAIRS candidates
+# of a 65536-slot submap against a 65536-slot submap's leaf-8 normals
+MERGE_PAIRS = OUTPUTS_PATH["merge"]["options"]["max_pairs"]
+MERGE_SHAPE = (MERGE_PAIRS, OUTPUTS_PATH["merge"]["submap_capacity"],
+               OUTPUTS_PATH["merge"]["submap_capacity"]
+               // OUTPUTS_PATH["merge"]["options"]["normal_leaf_size"])
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def outputs_package(nn_search, root: str) -> dict:
+    """The CLI path with the map package on: ``load_trajectory`` returns
+    the run's submaps, their poses equal ``kitti_pose.txt`` to 1e-6 m and
+    their clouds the run's bit for bit; ``python -m
+    staticmapping_torch.tools join_pieces`` rebuilds as many points as the
+    pieces hold, inside the static map's box.  ``save_trajectory``,
+    ``save_map_pieces`` and the pieces' device MRVM are timed on their
+    own."""
+    from staticmapping_torch import __main__ as cli
+    from staticmapping_torch import config as config_lib
+    from staticmapping_torch.builder import map_package, mrvm
+    from staticmapping_torch.common import prof
+    from staticmapping_torch.data import cloud as cloud_lib
+    from staticmapping_torch.io import kitti, pcd, synthetic
+
+    P = OUTPUTS_PATH["package"]
+    scans, gt = cli_sequence(synthetic.make_sequence, P["n_scans"])
+    work = os.path.join(root, "package")
+    velodyne, out = os.path.join(work, "velodyne"), os.path.join(work, "out")
+    write_kitti_bins(velodyne, scans)
+    cfg_path = os.path.join(work, "package.xml")
+    write_package_cfg(os.path.join(ROOT, P["cfg"]), cfg_path)
+    pkg_opts = config_lib.load_config(cfg_path).map_builder.map_package
+    args = cli.make_parser().parse_args(
+        ["--cfg", cfg_path, "--kitti", velodyne, "--out", out,
+         "--no-backend", "--rate", str(P["rate"]), "--device", DEV.type,
+         "--quiet"])
+    _reset_counts(nn_search)
+    t0 = time.perf_counter()
+    try:
+        mb = cli.run(args)
+        torch.cuda.synchronize()
+    finally:
+        prof.disable()
+    total = time.perf_counter() - t0
+    launches = dict(nn_search.launches)
+    stages = prof.stats()
+    shutil.rmtree(velodyne)
+
+    pkg_dir = os.path.join(out, "map_package")
+    back = map_package.load_trajectory(pkg_dir, pkg_opts, device=DEV)
+    poses = kitti.read_poses(os.path.join(out, "kitti_pose.txt"))
+    same_ids = [s.id for s in back] == [s.id for s in mb.trajectory]
+    pose_gap = max(float(np.abs(s.global_pose[:3] - T[:3]).max())
+                   for s, T in zip(back, poses))
+    # a submap left partial at the end of the run has no merged cloud
+    same_clouds = all(
+        (a.cloud is None and b.cloud is None)
+        or np.array_equal(cloud_lib.to_numpy(a.cloud),
+                          cloud_lib.to_numpy(b.cloud))
+        for a, b in zip(back, mb.trajectory))
+    pieces_dir = os.path.join(pkg_dir, "pieces")
+    joined = os.path.join(work, "joined.pcd")
+    tool = subprocess.run([sys.executable, "-m", "staticmapping_torch.tools",
+                           "join_pieces", pieces_dir, joined], cwd=ROOT,
+                          capture_output=True, text=True)
+    if tool.returncode:
+        raise AssertionError(f"join_pieces exited {tool.returncode}: "
+                             f"{tool.stderr[-2000:]}")
+    pieces = [f for f in os.listdir(pieces_dir) if f.endswith(".pcd")]
+    n_piece_points = sum(len(pcd.read_pcd(os.path.join(pieces_dir, f)))
+                         for f in pieces)
+    joined_pts = pcd.read_pcd(joined)
+    static = pcd.read_pcd(os.path.join(out, "static_map.pcd"))
+    lo, hi = static[:, :3].min(0) - 1e-3, static[:, :3].max(0) + 1e-3
+    inside = bool(np.all((joined_pts[:, :3] >= lo)
+                         & (joined_pts[:, :3] <= hi)))
+    # the pieces' device MRVM alone: each submap's ray-event reduction
+    settings = mb.options.mrvm_settings
+    device_ms = 0.0
+    for s in (s for s in mb.trajectory if s.cloud is not None):
+        gc = s.cloud.transform(torch.as_tensor(
+            s.global_pose.astype(np.float32), device=DEV))
+        origin = s.global_pose[:3, 3].astype(np.float32).copy()
+        origin[2] += settings.z_offset
+        origin = torch.as_tensor(origin, device=DEV)
+        device_ms += time_ms(lambda: mrvm._scan_events_packed(
+            gc.xyz, gc.mask, gc.intensity, origin,
+            settings.high_resolution, settings.max_ray_steps, False), 2)
+    ate = stamp_matched_ate([(f.stamp, f.global_pose) for s in mb.trajectory
+                             for f in s.frames], gt, 1.0 / P["rate"],
+                            kitti.ate_rmse)
+    res = {"part": "package", "n_scans": len(scans), "total_s": total,
+           "submaps": len(mb.trajectory), "same_submaps": same_ids,
+           "max_pose_gap_m": pose_gap, "same_clouds": same_clouds,
+           "pieces": len(pieces), "piece_points": n_piece_points,
+           "joined_points": len(joined_pts), "inside_static_box": inside,
+           "package_bytes": _dir_bytes(pkg_dir), "ate_m": ate,
+           "save_trajectory_s": stages["SaveTrajectory"]["sum"],
+           "save_map_pieces_s": stages["SaveMapPieces"]["sum"],
+           "pieces_device_mrvm_ms": device_ms,
+           "save_maps_s": stages["SaveMaps"]["sum"],
+           "finish_s": stages["Finish"]["sum"], "launches": launches}
+    emit({"phase": "outputs", **res})
+    if launches["single"] <= 0:
+        raise AssertionError("the package run never launched K1")
+    if not (same_ids and same_clouds and pose_gap <= 1e-6):
+        raise AssertionError(f"the package does not hold the run's submaps: "
+                             f"ids {same_ids}, clouds {same_clouds}, pose "
+                             f"gap {pose_gap} m")
+    if not (pieces and len(joined_pts) == n_piece_points > 0 and inside):
+        raise AssertionError(f"join_pieces rebuilt {len(joined_pts)} points "
+                             f"of {n_piece_points}, inside the static map's "
+                             f"box: {inside}")
+    return res
+
+
+def _factor_payloads(graph):
+    """Every factor batch of a pose graph as host lists, and the special
+    values."""
+    import dataclasses
+    return ({name: dataclasses.asdict(getattr(graph, name))
+             for name in ("factors", "gps_factors", "odom_factors",
+                          "prior_factors")},
+            [np.asarray(v) for v in graph.special_values])
+
+
+def _same_payloads(a, b) -> bool:
+    (fa, sa), (fb, sb) = a, b
+    return (all(len(fa[k][f]) == len(fb[k][f])
+                and all(np.array_equal(np.asarray(x), np.asarray(y))
+                        for x, y in zip(fa[k][f], fb[k][f]))
+                for k in fa for f in fa[k])
+            and all(np.array_equal(x, y) for x, y in zip(sa, sb)))
+
+
+def outputs_checkpoint(nn_search, root: str) -> dict:
+    """The CLI path's world and config with the back end on, the MRVM
+    export off: stopped after ``cut_after`` scans, saved, reloaded into a
+    fresh builder with a fresh back end, replayed from the first scan not
+    in a full submap and finished; held to an uninterrupted run."""
+    from staticmapping_torch import config as config_lib
+    from staticmapping_torch.backend.optimizer import IncrementalOptimizer
+    from staticmapping_torch.builder import checkpoint
+    from staticmapping_torch.common import prof
+    from staticmapping_torch.io import kitti, synthetic
+
+    C = OUTPUTS_PATH["checkpoint"]
+    scans, gt = cli_sequence(synthetic.make_sequence, C["n_scans"])
+    period = 1.0 / C["rate"]
+    work = os.path.join(root, "checkpoint")
+
+    def builder(name):
+        cfg = config_lib.load_config(os.path.join(ROOT, C["cfg"]))
+        cfg.map_builder.export_file_path = os.path.join(work, name)
+        cfg.map_builder.output_mrvm = False
+        cfg.map_builder.output_direct_combined_map = False
+        return cfg, config_lib.build_map_builder(cfg, with_backend=True,
+                                                 device=DEV)
+
+    def feed(mb, first, last):
+        for i in range(first, last):
+            mb.insert_pointcloud(i * period, scans[i])
+
+    _reset_counts(nn_search)
+    t0 = time.perf_counter()
+    try:
+        _, full = builder("uninterrupted")
+        feed(full, 0, len(scans))
+        full.finish()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cfg, cut = builder("interrupted")
+        feed(cut, 0, C["cut_after"])
+        torch.cuda.synchronize()
+        at_save = _factor_payloads(cut.backend.graph)
+        partial = [s for s in cut.trajectory if not s.full]
+        ckpt = os.path.join(work, "ckpt")
+        t_save = time.perf_counter()
+        checkpoint.save_checkpoint(cut, ckpt)
+        save_s = time.perf_counter() - t_save
+        t_load = time.perf_counter()
+        resumed = checkpoint.load_checkpoint(
+            ckpt, cfg.map_builder,
+            backend=IncrementalOptimizer(cfg.optimizer,
+                                         loop_settings=cfg.loop_detector,
+                                         device=DEV),
+            filter_chain=config_lib.build_filter_chain(cfg), device=DEV)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t_load
+        same_factors = _same_payloads(_factor_payloads(resumed.backend.graph),
+                                      at_save)
+        start = (int(round(partial[0].frames[0].stamp / period)) if partial
+                 else C["cut_after"])
+        feed(resumed, start, len(scans))
+        resumed.finish()
+        torch.cuda.synchronize()
+    finally:
+        prof.disable()
+    t2 = time.perf_counter()
+    launches = dict(nn_search.launches)
+
+    def frames(mb):
+        return [(f.stamp, f.global_pose) for s in mb.trajectory
+                for f in s.frames]
+    ate_full = stamp_matched_ate(frames(full), gt, period, kitti.ate_rmse)
+    ate_resumed = stamp_matched_ate(frames(resumed), gt, period,
+                                    kitti.ate_rmse)
+    n = min(len(full.trajectory), len(resumed.trajectory))
+    gap = max(float(np.linalg.norm(full.trajectory[k].global_pose[:3, 3]
+                                   - resumed.trajectory[k].global_pose[:3, 3]))
+              for k in range(n))
+    res = {"part": "checkpoint", "n_scans": len(scans),
+           "cut_after": C["cut_after"], "replayed_from": start,
+           "dropped_partial_submap": [s.id for s in partial],
+           "submaps_uninterrupted": len(full.trajectory),
+           "submaps_resumed": len(resumed.trajectory),
+           "factors_at_save": len(at_save[0]["factors"]["i"]),
+           "same_factors_after_reload": same_factors,
+           "max_submap_gap_m": gap, "tol_m": C["tol_m"],
+           "ate_uninterrupted_m": ate_full, "ate_resumed_m": ate_resumed,
+           "ate_limit_m": C["ate_limit_m"],
+           "checkpoint_bytes": _dir_bytes(ckpt), "save_s": save_s,
+           "load_s": load_s, "uninterrupted_s": t1 - t0,
+           "interrupted_s": t2 - t1, "launches": launches}
+    emit({"phase": "outputs", **res})
+    if launches["single"] <= 0:
+        raise AssertionError("the checkpoint runs never launched K1")
+    if len(resumed.trajectory) < len(full.trajectory) - 1:
+        raise AssertionError(f"the resumed run has {len(resumed.trajectory)} "
+                             f"submaps, the uninterrupted "
+                             f"{len(full.trajectory)}")
+    if not same_factors:
+        raise AssertionError("the reloaded factors differ from those saved")
+    if not gap < C["tol_m"]:
+        raise AssertionError(f"a resumed submap lies {gap} m from the "
+                             "uninterrupted run's")
+    if not ate_resumed < C["ate_limit_m"]:
+        raise AssertionError(f"resumed ATE {ate_resumed} m exceeds "
+                             f"{C['ate_limit_m']} m")
+    return res
+
+
+def merge_passes(work: str):
+    """The merge's two passes on the card (``OUTPUTS_PATH["merge"]``),
+    saved as packages under ``work``; returns ``(dirs, ground-truth
+    submap poses)``."""
+    from staticmapping_torch.builder import frame, map_package
+    from staticmapping_torch.common import np_se3
+    from staticmapping_torch.data import cloud as cloud_lib
+    from staticmapping_torch.io import synthetic
+
+    M = OUTPUTS_PATH["merge"]
+    P = MAIN_PATH
+    world = synthetic.make_world(seed=P["seed"])
+    gt = synthetic.straight_trajectory(M["n_scans"], step=P["step"])
+    ex, ey, eyaw = M["pose_error"]
+    err = np_se3.from_rt(np_se3.euler_to_matrix([0.0, 0.0, eyaw]),
+                         [ex, ey, 0.0])
+    opts = frame.SubmapOptions(frame_count=M["frames"],
+                               enable_voxel_filter=True,
+                               voxel_size=M["voxel_size"])
+    dirs = []
+    for p in range(2):
+        traj = frame.Trajectory(p)
+        for k in range(M["n_scans"] // M["frames"]):
+            s = frame.Submap(k, opts, capacity=M["submap_capacity"],
+                             device=DEV)
+            for i in range(k * M["frames"], (k + 1) * M["frames"]):
+                pts = synthetic.render_scan(world, gt[i],
+                                            max_range=P["max_range"],
+                                            max_points=P["max_points"],
+                                            seed=p * 100 + i)
+                s.insert_frame(frame.Frame(
+                    stamp=i * P["scan_period"], global_pose=gt[i].copy(),
+                    cloud=cloud_lib.from_numpy(
+                        pts, capacity=M["scan_capacity"], device=DEV)))
+            if k:
+                prev = traj[k - 1]
+                prev.match_transform_to_next = (
+                    np_se3.inverse(prev.global_pose) @ s.global_pose)
+            traj.append(s)
+        if p:
+            for s in traj:
+                s.global_pose = np_se3.normalize_rotation(err @ s.global_pose)
+                s.update_inner_frame_poses()
+        dirs.append(os.path.join(work, f"pass_{p}"))
+        map_package.save_trajectory(traj, dirs[-1])
+    return dirs, [gt[k * M["frames"]] for k in range(M["n_scans"]
+                                                     // M["frames"])]
+
+
+def outputs_merge(nn_search, root: str) -> dict:
+    """Two passes over the main path's world, saved as packages, reloaded
+    with ``load_base_map`` and ``load_incremental_map`` and merged with 64
+    candidate pairs in one batched ICP (K2), held to
+    tests/test_multi_trajectory.py's bounds."""
+    from staticmapping_torch.builder import multi_trajectory
+    from staticmapping_torch.registration import icp_fast
+
+    M = OUTPUTS_PATH["merge"]
+    t0 = time.perf_counter()
+    dirs, gt = merge_passes(os.path.join(root, "merge"))
+    build_s = time.perf_counter() - t0
+
+    def mean_error(traj):
+        return float(np.mean([np.linalg.norm(s.global_pose[:3, 3]
+                                             - g[:3, 3])
+                              for s, g in zip(traj, gt)]))
+
+    mt = multi_trajectory.MultiTrajectoryMapBuilder(
+        multi_trajectory.MultiTrajectoryOptions(**M["options"]), device=DEV)
+    base = mt.load_base_map(dirs[0], capacity=M["submap_capacity"])
+    extra = mt.load_incremental_map(dirs[1], capacity=M["submap_capacity"])
+    before = mean_error(extra)
+    n_cands = []
+    _reset_counts(nn_search)
+    t1 = time.perf_counter()
+    edges = mt.merge(n_cands)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t1
+    launches = dict(nn_search.launches)
+    trips = icp_fast.trip_counts()
+    after, base_move = mean_error(extra), mean_error(base)
+    res = {"part": "merge", "submaps": [len(base), len(extra)],
+           "candidates": n_cands[0], "accepted_edges": edges,
+           "error_before_m": before, "error_after_m": after,
+           "base_move_m": base_move, "build_s": build_s, "merge_s": merge_s,
+           "icp_trips": trips, "launches": launches}
+    emit({"phase": "outputs", **res})
+    if launches["batched"] <= 0:
+        raise AssertionError("the merge never launched K2")
+    if not (edges >= M["min_edges"] and base_move < M["base_move_m"]
+            and after < M["error_ratio"] * before):
+        raise AssertionError(f"merge: {edges} edges, base moved {base_move} "
+                             f"m, error {before} -> {after} m")
+    return res
+
+
+def merge_kernel(nn_search) -> dict:
+    """K2 at the merge's shape held to its plain version (over chunks of 8
+    pairs: one plain call over 64 would hold 32 GiB of d² tiles) and to
+    the near-tie contract on the verifier's thinned rows of every eighth
+    pair, then timed by CUDA-graph replay beside the plain version and
+    ``torch.cdist`` + min (16 calls of 4 pairs: one call's d² would need
+    137 GB)."""
+    b, m, n = MERGE_SHAPE
+    rng = np.random.default_rng(6)
+    q, t, mask, tgt = main_shape_inputs(nn_search, rng, b, m, n)
+    agree, max_abs_err, d_k, i_k = hold_to_plain(nn_search, q, t, mask, tgt,
+                                                 "k2_merge", chunk=8)
+    rows = thinned_rows(m)
+    qh, th, mh = (x.cpu().numpy() for x in (q, t, mask))
+    dh, ih = d_k.cpu().numpy(), i_k.cpu().numpy()
+    contract = [check_one(qh[k][rows], th[k], mh[k], dh[k][rows],
+                          ih[k][rows]) for k in range(0, b, 8)]
+    ok = all(c["ok"] for c in contract)
+    bound_ms, bound_by = nn_bound(b, m, n)
+    ms = graph_ms(lambda: nn_search._nearest_cuda(q, tgt), 10)
+    plain_ms = sum(time_ms(lambda s=s: nn_search._nearest_plain(
+        q[s:s + 8], tgt[s:s + 8], mask[s:s + 8]), 1) for s in range(0, b, 8))
+    library_ms = sum(time_ms(lambda s=s: torch.cdist(
+        q[s:s + 4], tgt[s:s + 4]).min(-1), 1) for s in range(0, b, 4))
+    res = {"part": "k2_merge_shape", "shape": [b, m, n], "idx_agree": agree,
+           "max_abs_err": max_abs_err, "contract_ok": ok,
+           "contract": contract, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+           "plan": nn_search.plan(b, m, n,
+                                  sms=nn_search._sm_count(DEV))._asdict()}
+    emit({"phase": "outputs", **res})
+    del q, t, mask, tgt, d_k, i_k
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"K2 at the merge's shape fails the near-tie "
+                             f"contract: {contract}")
+    return res
+
+
+def outputs_path(nn_search) -> dict:
+    """The three parts of the outputs path, each with its launch counts
+    set to 0 before it and read after, then K2 at the merge's shape.  The
+    packages, checkpoints and maps they write (hundreds of MB) go to a
+    temporary directory, removed at the end."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_outputs_")
+    try:
+        parts = {"package": outputs_package(nn_search, root),
+                 "checkpoint": outputs_checkpoint(nn_search, root),
+                 "merge": outputs_merge(nn_search, root)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"parts": parts, "k2_merge_shape": merge_kernel(nn_search),
+            "launches": {k: sum(p["launches"][k] for p in parts.values())
+                         for k in NN_KERNELS}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -1188,6 +1613,7 @@ def main() -> int:
     mrvm_vs_plain(mb)
     backend = backend_path(nn_search)
     matchers = matchers_path(nn_search)
+    outputs = outputs_path(nn_search)
 
     def entry(meta, source, launches, t):
         return {"name": meta["name"], "route": "cuda", "source": source,
@@ -1196,12 +1622,13 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
-    # K1 and K2 launch on the main path, the back-end path and the three
-    # matcher runs
+    # K1 and K2 launch on the main path, the back-end path, the three
+    # matcher runs and the outputs path's three parts
     emit({"kernels": [
         entry(meta, NN_SOURCE,
               res["launches"][k] + backend["launches"][k]
-              + sum(r["launches"][k] for r in matchers["runs"].values()),
+              + sum(r["launches"][k] for r in matchers["runs"].values())
+              + outputs["launches"][k],
               timing[k])
         for k, meta in NN_KERNELS.items()] + [
         entry(meta, VARIANT_SOURCE, bench["launches"][k], vtiming[k])

@@ -9,9 +9,13 @@ without the back end, the bound of tests/test_matcher_e2e.py for the type).
 It builds ``staticmapping_tpu``'s ``MapBuilder`` from the same config with
 the same settings and prints one JSON line a run: the ATE (keyframes
 matched to the ground truth by stamp), the keyframe and submap counts and
-the seconds the run took.  It needs JAX, not torch.
+the seconds the run took.  It needs JAX, not torch.  ``--permute SEED``
+permutes the points within each scan (numpy ``default_rng(SEED)``) before
+they are inserted; ``scripts/torch_matcher_ate.py`` makes the same chunked
+runs through the port.
 
     python3 scripts/jax_matcher_ate.py [--run type3|type5|type1 ...]
+        [--permute SEED]
 """
 from __future__ import annotations
 
@@ -26,13 +30,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def chunked_run(run) -> dict:
+def chunked_run(run, permute=None) -> dict:
     from scripts.main_path import (MATCHER_PATH, configure_matcher_run,
-                                   matcher_sequence, stamp_matched_ate)
+                                   matcher_sequence, permute_points,
+                                   stamp_matched_ate)
     from staticmapping_tpu import config as config_lib
     from staticmapping_tpu.io import kitti, synthetic
 
     scans, gt = matcher_sequence(run, synthetic.make_sequence)
+    scans = permute_points(scans, permute)
     cfg = config_lib.load_config(os.path.join(ROOT, MATCHER_PATH["cfg"]))
     cfg.map_builder.export_file_path = tempfile.mkdtemp(prefix="jax_mt_")
     configure_matcher_run(cfg, run)
@@ -51,14 +57,15 @@ def chunked_run(run) -> dict:
             "seconds": seconds}
 
 
-def sequential_run(run) -> dict:
+def sequential_run(run, permute=None) -> dict:
     from scripts.main_path import (CLI_PATH, cli_sequence, path_csv_frames,
-                                   stamp_matched_ate, write_kitti_bins,
-                                   write_matcher_cfg)
+                                   permute_points, stamp_matched_ate,
+                                   write_kitti_bins, write_matcher_cfg)
     from staticmapping_tpu.__main__ import main as cli_main
     from staticmapping_tpu.io import kitti, synthetic
 
     scans, gt = cli_sequence(synthetic.make_sequence, run["n_scans"])
+    scans = permute_points(scans, permute)
     work = tempfile.mkdtemp(prefix="jax_mt1_")
     velodyne, out = os.path.join(work, "velodyne"), os.path.join(work, "out")
     write_kitti_bins(velodyne, scans)
@@ -88,6 +95,8 @@ def main() -> None:
     p.add_argument("--run", action="append",
                    choices=sorted(runs) + [seq["name"]],
                    help="the runs to make (default: all)")
+    p.add_argument("--permute", type=int, default=None, metavar="SEED",
+                   help="permute the points within each scan")
     args = p.parse_args()
     import jax
     if jax.config.jax_platforms != "cpu":
@@ -95,13 +104,14 @@ def main() -> None:
         from jax.extend.backend import clear_backends
         clear_backends()
     for name in args.run or sorted(runs) + [seq["name"]]:
-        res = sequential_run(seq) if name == seq["name"] \
-            else chunked_run(runs[name])
+        res = sequential_run(seq, args.permute) if name == seq["name"] \
+            else chunked_run(runs[name], args.permute)
         print(json.dumps({"package": "staticmapping_tpu",
                           "platform": jax.default_backend(), "run": name,
                           "matcher_type": (seq if name == seq["name"]
                                            else runs[name])["matcher_type"],
-                          "backend": False, **res}), flush=True)
+                          "backend": False, "permute": args.permute, **res}),
+              flush=True)
 
 
 if __name__ == "__main__":

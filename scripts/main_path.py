@@ -1,5 +1,5 @@
-"""Settings of the port's main path, its CLI path, its back-end path and its
-matcher path, shared by ``chip_smoke.py`` (the port on the GPU),
+"""Settings of the port's main path, its CLI path, its back-end path, its
+matcher path and its outputs path, shared by ``chip_smoke.py`` (the port on the GPU),
 ``scripts/profile_main_path.py`` and the JAX references
 ``scripts/jax_main_path_ate.py``, ``scripts/jax_cli_ate.py``,
 ``scripts/jax_backend_ate.py`` and ``scripts/jax_matcher_ate.py``.  Plain Python and numpy: importing it loads
@@ -98,11 +98,64 @@ MATCHER_PATH = {
 }
 
 
+# The outputs path: what a user runs after a drive, at the default widths
+# (scan capacity 32768, submap capacity 65536, leaf 8).
+# - "package": CLI_PATH with a copy of its config whose
+#   map_package_options has enable="true": the map package and its pieces.
+# - "checkpoint": CLI_PATH's world and config with the back end on and the
+#   MRVM export off, sequential; stopped after ``cut_after`` scans, saved,
+#   reloaded into a fresh builder and run to the end, held to an
+#   uninterrupted run: every submap within ``tol_m`` (tests/
+#   test_checkpoint.py's bound), the ATE under ``ate_limit_m`` (CLI_PATH's).
+# - "merge": two passes along the ground truth of MAIN_PATH's first
+#   ``n_scans`` scans, ``frames`` consecutive full-width renders a submap
+#   merged at ``voxel_size``; scan k of pass p is drawn with seed
+#   p * 100 + k (tests/test_multi_trajectory.py's rule), and pass 1's
+#   stored poses carry ``pose_error`` (x, y m, yaw rad; that test's).  Both
+#   are saved as packages, reloaded and merged with ``options``: that
+#   test's gates and acceptance score at leaf 8 and 64 pairs, so the
+#   merge's K2 batch is 64 x 65536 x 8192.  Its bounds are that test's.
+OUTPUTS_PATH = {
+    "package": {"n_scans": CLI_PATH["n_scans"], "cfg": CLI_PATH["cfg"],
+                "rate": CLI_PATH["rate"]},
+    "checkpoint": {"n_scans": CLI_PATH["n_scans"], "cfg": CLI_PATH["cfg"],
+                   "rate": CLI_PATH["rate"], "cut_after": 32,
+                   "tol_m": 0.8, "ate_limit_m": 0.35},
+    "merge": {"n_scans": 80, "frames": 2, "voxel_size": 0.1,
+              "submap_capacity": 65536, "scan_capacity": 32768,
+              "pose_error": (1.0, -0.7, 0.05),
+              "options": {"max_distance": 10.0, "use_descriptor": False,
+                          "accept_match_score": 0.3, "normal_leaf_size": 8,
+                          "max_pairs": 64},
+              "min_edges": 3, "base_move_m": 0.2, "error_ratio": 0.3},
+}
+
+
+def write_package_cfg(src: str, path: str) -> None:
+    """Copy the XML config ``src`` to ``path`` with its map package
+    enabled."""
+    import xml.etree.ElementTree as ET
+    tree = ET.parse(src)
+    tree.getroot().find("static_mapping/map_package_options").set(
+        "enable", "true")
+    tree.write(path)
+
+
 def matcher_sequence(run, make_sequence):
     """The scans and ground-truth poses of one chunked matcher run."""
     return make_sequence(n_scans=run["n_scans"], trajectory=run["trajectory"],
                          seed=run["seed"], max_points=run["max_points"],
                          max_range=run["max_range"])
+
+
+def permute_points(scans, seed):
+    """Each scan with its points in an order drawn from ``seed`` (None
+    keeps the scans' own order): the same points, summed in another order
+    by every reduction over a scan."""
+    if seed is None:
+        return scans
+    rng = np.random.default_rng(seed)
+    return [s[rng.permutation(len(s))] for s in scans]
 
 
 def configure_matcher_run(cfg, run) -> None:

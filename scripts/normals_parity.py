@@ -1,7 +1,9 @@
-"""How far the port's kd-split leaf normals lie from the JAX package's, on
-the CPU, at the scan of ``tests/test_torch_ops.py::test_kdsplit_normals_match_jax``.
+"""How far the port's leaf normals lie from the JAX package's, on the CPU,
+at the scan of ``tests/test_torch_ops.py::test_kdsplit_normals_match_jax``
+(seed 4), or another seed's with a share of the slots masked at random.
 
-    python3 scripts/normals_parity.py [--leaf 8]
+    python3 scripts/normals_parity.py [--leaf 8] [--method kdsplit|morton]
+        [--seed 4] [--invalid 0.0]
 
 Prints one JSON line: the leaves, how many differ from JAX by more than
 1e-3 and by how much at most, and how far each package strays from a
@@ -25,6 +27,11 @@ sys.path.insert(0, ROOT)
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--leaf", type=int, default=8)
+    ap.add_argument("--method", choices=("kdsplit", "morton"),
+                    default="kdsplit")
+    ap.add_argument("--seed", type=int, default=4)
+    ap.add_argument("--invalid", type=float, default=0.0,
+                    help="share of the slots masked at random")
     args = ap.parse_args()
 
     import jax
@@ -39,15 +46,33 @@ def main() -> None:
     from staticmapping_torch import interop
     from staticmapping_torch.ops import normals as tnormals
 
-    world = synthetic.make_world(seed=4)
+    import jax.numpy as jnp
+    import torch
+
+    world = synthetic.make_world(seed=args.seed)
     pose = synthetic.straight_trajectory(1)[0]
-    pts = synthetic.render_scan(world, pose, max_points=3500, seed=4)
+    pts = synthetic.render_scan(world, pose, max_points=3500, seed=args.seed)
     jc = jcloud.from_numpy(pts, capacity=4096)
-    want = jnormals.estimate_normals(jc.compact(), leaf_size=args.leaf)
-    pc = interop.point_cloud(jc, "cpu").compact()
-    got = tnormals.estimate_normals(pc, leaf_size=args.leaf)
-    exact = tnormals.estimate_normals(
-        dataclasses.replace(pc, xyz=pc.xyz.double()), leaf_size=args.leaf)
+    rng = np.random.default_rng(args.seed)
+    jc = dataclasses.replace(jc, mask=jnp.asarray(
+        np.asarray(jc.mask) & (rng.random(4096) >= args.invalid)))
+    if args.method == "kdsplit":
+        jc = jc.compact()
+    want = jnormals.estimate_normals(jc, leaf_size=args.leaf,
+                                     method=args.method)
+    pc = interop.point_cloud(jc, "cpu")
+    got = tnormals.estimate_normals(pc, leaf_size=args.leaf,
+                                    method=args.method)
+    if args.method == "kdsplit":
+        exact = tnormals.estimate_normals(
+            dataclasses.replace(pc, xyz=pc.xyz.double()),
+            leaf_size=args.leaf)
+    else:
+        # the same leaves (the f32 Morton order), solved in float64
+        perm = torch.sort(tnormals.morton_keys(pc), stable=True).indices
+        xyz = pc.xyz[perm].double()
+        exact = tnormals._leaf_normals(xyz[:, 0], xyz[:, 1], xyz[:, 2],
+                                       pc.mask[perm], args.leaf)
 
     m = np.asarray(want.mask)
     n_t = got.normals.numpy()[m]
@@ -57,6 +82,7 @@ def main() -> None:
     port_stray = np.abs(n_t - n_64).max(1)
     jax_stray = np.abs(n_j - n_64).max(1)
     print(json.dumps({
+        "method": args.method, "seed": args.seed, "invalid": args.invalid,
         "leaf_size": args.leaf, "leaves": int(m.sum()),
         "over_1e-3": int(np.sum(diff > 1e-3)),
         "share_over_1e-3": float(np.mean(diff > 1e-3)),

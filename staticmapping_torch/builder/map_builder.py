@@ -10,10 +10,8 @@ onto their predecessors, one at a time or in batches of ``pair_match_batch``
 (the reference's SubmapPairMatch queue, map_builder.cc:399-446), and then
 handed to the back end in submap order.  ``finish`` runs the final
 optimization and writes ``kitti_pose.txt``, ``path.csv``, the MRVM static
-map and the direct combined map.
-
-Not ported yet, and refused with ``NotImplementedError`` rather than skipped:
-the map package (``save_map_package``).
+map, the direct combined map and, with ``save_map_package``, the map package
+and its pieces (``builder/map_package.py``).
 """
 from __future__ import annotations
 
@@ -37,7 +35,7 @@ from ..registration.icp_fast import align_point_to_plane
 from .frame import (Frame, MemoryManager, Submap, SubmapOptions, Trajectory,
                     _batch_merge_frames)
 from .frontend import FrontEnd, FrontEndOptions, _target_normals
-from .map_package import MapPackageOptions
+from .map_package import MapPackageOptions, save_map_pieces, save_trajectory
 from .mrvm import MrvmSettings, MultiResolutionVoxelMap
 from .pipeline import DeviceFrontEnd
 from .pose_extrapolator import ImuData, PoseExtrapolator
@@ -128,14 +126,6 @@ class MapBuilderOptions:
     score_spacing_ref: float = 0.0
 
 
-def _refuse_unported(options: MapBuilderOptions) -> None:
-    """Raise for every option whose code is not ported yet."""
-    if options.save_map_package:
-        raise NotImplementedError(
-            "staticmapping_torch does not support save_map_package=True: "
-            "the map package is ROADMAP.md queue A item 17")
-
-
 class MapBuilder:
     """Feed scans with :meth:`insert_pointcloud`, then call :meth:`finish`.
 
@@ -147,7 +137,6 @@ class MapBuilder:
                  filter_chain: Optional[Callable] = None,
                  backend=None, device=None):
         self.options = options or MapBuilderOptions()
-        _refuse_unported(self.options)
         self.backend = backend
         self.device = resolve_device(device)
         if self.options.pipelined:
@@ -508,6 +497,16 @@ class MapBuilder:
         self._output_path_files(out_dir)
         if self.options.output_mrvm or self.options.output_direct_combined_map:
             self._save_maps(out_dir)
+        if self.options.save_map_package:
+            package_dir = os.path.join(out_dir, "map_package")
+            save_trajectory(self.trajectory, package_dir,
+                            self.options.map_package)
+            # bounded-size map pieces (SaveTrajectoriesAsMapPackage,
+            # map_package.cc:51-230)
+            save_map_pieces(self.trajectory,
+                            os.path.join(package_dir, "pieces"),
+                            self.options.map_package,
+                            self.options.mrvm_settings)
         if (self.backend is not None
                 and self.backend.options.output_graph_pic):
             self.backend.save_view_graph(out_dir)

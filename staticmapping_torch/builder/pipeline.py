@@ -265,6 +265,8 @@ class DeviceFrontEnd:
         self.base = np.eye(4)            # f64 global pose of the device frame
         self.state: Optional[_FeState] = None
         self._base_stamp = 0.0           # absolute stamp of the first scan
+        self.num_scans = 0
+        self.last_score = 1.0            # score of the newest harvested scan
         self._buf: List[Tuple[float, np.ndarray]] = []
         # _staged: chunks whose pack + host-to-device copy runs on the stage
         # thread; the oldest is run when the next chunk fills.  _inflight:
@@ -338,6 +340,7 @@ class DeviceFrontEnd:
     def process(self, stamp: float, points: np.ndarray) -> List[Frame]:
         """Feed one scan; returns keyframes completed so far (possibly
         empty; they arrive in bursts at chunk boundaries)."""
+        self.num_scans += 1
         points = np.asarray(points)
         if self.state is None:
             # first scan: becomes target + first keyframe at identity
@@ -434,6 +437,7 @@ class DeviceFrontEnd:
             return []
         poses_h = torch.stack([o[0] for o in outputs]).cpu().double().numpy()
         scores_h = torch.stack([o[1] for o in outputs]).cpu().double().numpy()
+        self.last_score = float(scores_h[-1])
         frames = [
             Frame(stamp=float(stamps_abs[i]), cloud=src,
                   global_pose=np_se3.normalize_rotation(

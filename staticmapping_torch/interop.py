@@ -3,12 +3,12 @@
 This system has no weights: its state is point clouds, the chunked front
 end's ``_FeState``, the sequential front end's poses and target, and the
 back end's pose graph.  The functions here build the port's ``PointCloud``,
-``NormalCloud``, ``NdtMap``, ``GicpCloud``, ``_FeState`` and ``PoseGraph``
-(and a pose-graph solver's argument tuple) from any object with the same field names (the JAX
-package's dataclasses and NamedTuples, or plain mappings) whose leaves
-convert with ``numpy.asarray``, load a sequential ``FrontEnd`` from another
-one's state, and turn the port's objects back into nested dicts of numpy
-arrays.  The loop detector's history is submaps: their clouds go through
+``NormalCloud``, ``NdtMap``, ``GicpCloud``, ``_FeState``, ``PoseGraph`` and
+``Trajectory`` (and a pose-graph solver's argument tuple) from any object
+with the same field names (the JAX package's dataclasses and NamedTuples,
+or plain mappings) whose leaves convert with ``numpy.asarray``, load a
+sequential ``FrontEnd`` from another one's state, and turn the port's
+objects back into nested dicts of numpy arrays.  The loop detector's history is submaps: their clouds go through
 :func:`point_cloud` and :func:`normal_cloud`.  Nothing here imports JAX: a
 JAX array is read through ``numpy.asarray`` like any other array.
 """
@@ -23,6 +23,7 @@ import torch
 
 from . import resolve_device
 from .backend import pose_graph as pg
+from .builder.frame import Frame, Submap, SubmapOptions, Trajectory
 from .builder.frontend import FrontEnd
 from .builder.pipeline import _FeState
 from .data.cloud import NormalCloud, PointCloud
@@ -136,6 +137,47 @@ def pose_graph(src, device=None) -> "pg.PoseGraph":
                                for f in dataclasses.fields(cls))))
     g.special_values = _host_list(_field(src, "special_values"))
     return g
+
+
+def _pose(T) -> np.ndarray:
+    return None if T is None else np.array(T, dtype=np.float64)
+
+
+def trajectory(src, device=None) -> Trajectory:
+    """The port's ``Trajectory`` (clouds on ``device``) holding ``src``'s
+    submaps: id, options, stamp, global pose, ``match_transform_to_next``,
+    the score to the previous submap, the M2DP descriptor, the merged
+    cloud (at its own capacity) and the frames as skeletons (stamp, poses
+    and score, no cloud)."""
+    dev = resolve_device(device)
+    out = Trajectory(int(_field(src, "id")))
+    for s_src in _field(src, "submaps"):
+        opts_src = _field(s_src, "options")
+        opts = SubmapOptions(**{f.name: _field(opts_src, f.name)
+                                for f in dataclasses.fields(SubmapOptions)})
+        cloud = _field(s_src, "cloud")
+        s = Submap(int(_field(s_src, "id")), opts,
+                   capacity=(int(np.shape(_field(cloud, "mask"))[-1])
+                             if cloud is not None
+                             else int(_field(s_src, "capacity"))),
+                   device=dev)
+        s.stamp = float(_field(s_src, "stamp"))
+        s.global_pose = _pose(_field(s_src, "global_pose"))
+        s.match_transform_to_next = _pose(
+            _field(s_src, "match_transform_to_next"))
+        s.match_score_to_previous = float(
+            _field(s_src, "match_score_to_previous"))
+        desc = _field(s_src, "descriptor")
+        s.descriptor = None if desc is None else np.array(desc)
+        s.cloud = None if cloud is None else point_cloud(cloud, dev)
+        for f in _field(s_src, "frames"):
+            s.frames.append(Frame(
+                stamp=float(_field(f, "stamp")), cloud=None,
+                global_pose=_pose(_field(f, "global_pose")),
+                local_pose=_pose(_field(f, "local_pose")),
+                match_score=float(_field(f, "match_score"))))
+        out.append(s)
+    return out
 
 
 def solver_args(args, device=None) -> tuple:

@@ -1,13 +1,21 @@
 """Spatial-split normal estimation + surface-aware downsampling — the
-PyTorch counterpart of ``staticmapping_tpu.ops.normals`` (``kdsplit``).
+PyTorch counterpart of ``staticmapping_tpu.ops.normals``.
 
 The reference (builder/data/cloud_types.cc:73-144) recursively median-splits
 the cloud along its widest dimension down to leaves of <= 7 points, then per
 leaf computes one representative point (the mean) whose normal solves the
-unconstrained least squares ``(Σ d dᵀ) n = Σ d``.  Here the recursion is
-``log2`` rounds of segment-wise stable sorts (one ``torch.sort`` along the
-segment axis per round), and the leaf solves are one batched closed-form
-3×3 solve.  Every function takes an optional leading batch axis.
+unconstrained least squares ``(Σ d dᵀ) n = Σ d``.  Two groupings, as in the
+JAX package:
+
+* ``kdsplit`` (default): the recursion as ``log2`` rounds of segment-wise
+  stable sorts (one ``torch.sort`` along the segment axis per round).
+* ``morton``: one stable sort by a 30-bit Morton code of the points
+  quantized into a 1024³ lattice over their bounding box; leaves are
+  consecutive Z-order runs.  Cheaper, but a run can mix surfaces, so the
+  JAX package keeps it off every path where normal quality matters.
+
+Either way the leaf solves are one batched closed-form 3×3 solve.  Every
+function takes an optional leading batch axis.
 """
 from __future__ import annotations
 
@@ -18,6 +26,43 @@ import torch
 from ..data.cloud import PointCloud, NormalCloud, PAD_COORD
 
 _INF = float("inf")
+_MORTON_BITS = 10  # 10 bits/axis → 30-bit code
+_MORTON_INVALID = 0x7FFFFFFF  # invalid points sort to the end
+
+
+def _morton_interleave(q: torch.Tensor) -> torch.Tensor:
+    """``[..., 3]`` int32 in [0, 1024) → ``[...]`` int32 Morton code
+    (bit-interleaved x, y, z), with the JAX package's magic masks."""
+    def spread(v):
+        # spread 10 bits to every 3rd position
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        v = (v | (v << 2)) & 0x09249249
+        return v
+
+    return (spread(q[..., 0]) | (spread(q[..., 1]) << 1)
+            | (spread(q[..., 2]) << 2))
+
+
+def morton_keys(cloud: PointCloud) -> torch.Tensor:
+    """``[..., N]`` int32 Morton key of every slot: valid points quantized
+    into a 1024³ lattice over their bounding box in f32 (truncating, as
+    ``astype(int32)`` does), invalid slots ``0x7FFFFFFF``."""
+    xyz, mask = cloud.xyz, cloud.mask
+    lo = torch.amin(torch.where(mask[..., None], xyz, _INF), dim=-2)
+    hi = torch.amax(torch.where(mask[..., None], xyz, -_INF), dim=-2)
+    lo = torch.where(torch.isfinite(lo), lo, 0.0)
+    hi = torch.where(torch.isfinite(hi), hi, 1.0)
+    top = (1 << _MORTON_BITS) - 1
+    span = torch.clamp_min(hi - lo, 1e-6)
+    # a tensor quotient: ``top / span`` is reciprocal-then-multiply in
+    # torch, which rounds some keys one step lower than the JAX package
+    scale = torch.full_like(span, top) / span
+    q = torch.clamp(((xyz - lo[..., None, :]) * scale[..., None, :])
+                    .to(torch.int32), 0, top)
+    key = _morton_interleave(q)
+    return torch.where(mask, key, torch.full_like(key, _MORTON_INVALID))
 
 
 def _sym3_eigvals(A: torch.Tensor) -> torch.Tensor:
@@ -138,14 +183,15 @@ def _leaf_normals(x, y, z, mask, leaf_size: int) -> NormalCloud:
 
 def estimate_normals(cloud: PointCloud, leaf_size: int = 8,
                      method: str = "kdsplit") -> NormalCloud:
-    """Split-to-leaves normal estimation (``kdsplit``: faithful median
-    splits along the widest valid dimension of every segment).
+    """Split-to-leaves normal estimation.
 
     Args:
-      cloud: ``[..., N]`` with ``N`` a power of two and a multiple of
-        ``leaf_size``.
+      cloud: ``[..., N]`` with ``N`` a multiple of ``leaf_size`` (and a
+        power of two for ``kdsplit``).
       leaf_size: points per leaf (a power of two; the reference stops at
         <= 7, cloud_types.cc:111-115).
+      method: ``'kdsplit'`` (median splits along the widest valid dimension
+        of every segment) or ``'morton'`` (one stable sort by Morton key).
     Returns:
       NormalCloud of capacity ``N / leaf_size``: per-leaf mean point + unit
       normal; leaves with < 3 valid points or rank < 2 are masked out.
@@ -155,10 +201,14 @@ def estimate_normals(cloud: PointCloud, leaf_size: int = 8,
         raise ValueError("leaf_size must be a power of two >= 2")
     if n % leaf_size:
         raise ValueError(f"capacity {n} not a multiple of leaf {leaf_size}")
+    if method == "morton":
+        perm = torch.sort(morton_keys(cloud), dim=-1, stable=True).indices
+        xyz = torch.gather(cloud.xyz, -2,
+                           perm[..., None].expand(cloud.xyz.shape))
+        return _leaf_normals(xyz[..., 0], xyz[..., 1], xyz[..., 2],
+                             torch.gather(cloud.mask, -1, perm), leaf_size)
     if method != "kdsplit":
-        raise NotImplementedError(
-            f"method {method!r}: only 'kdsplit' is ported (morton is a "
-            "later item of ROADMAP.md queue A)")
+        raise ValueError(f"unknown method {method!r}")
     if n & (n - 1):
         raise ValueError(f"capacity {n} must be a power of two for kdsplit")
 

@@ -824,3 +824,56 @@ def test_voxel_stats_on_the_gpu_equal_the_cpu(cuda_device):
     ds_g = voxel.voxel_downsample(gpu, 0.2)
     assert torch.equal(ds_g.xyz.cpu(), ds_c.xyz)
     assert torch.equal(ds_g.mask.cpu(), ds_c.mask)
+
+
+def test_morton_normals_on_the_gpu_equal_the_cpu(cuda_device):
+    """Morton normals of one full-width scan: the keys, their sorted order
+    and the leaf mask on the card equal the CPU's.  The leaf normals come
+    from the raw f32 leaf moment, whose sums the card rounds differently:
+    the card's stray from a float64 solve of the same leaves is held to
+    twice the CPU's (99th percentile, as the JAX parity test holds the
+    CPU's)."""
+    from staticmapping_torch.data import cloud as tcloud
+    from staticmapping_torch.io import synthetic
+    from staticmapping_torch.ops import normals
+    world = synthetic.make_world(seed=3)
+    pts = synthetic.render_scan(world, synthetic.straight_trajectory(1)[0],
+                                max_points=30000, max_range=70.0, seed=3)
+    cpu = tcloud.from_numpy(pts, capacity=32768, device="cpu")
+    gpu = tcloud.from_numpy(pts, capacity=32768, device=cuda_device)
+    k_c, k_g = normals.morton_keys(cpu), normals.morton_keys(gpu)
+    assert torch.equal(k_g.cpu(), k_c)
+    perm = torch.sort(k_c, stable=True).indices
+    assert torch.equal(torch.sort(k_g, stable=True).indices.cpu(), perm)
+    want = normals.estimate_normals(cpu, leaf_size=8, method="morton")
+    got = normals.estimate_normals(gpu, leaf_size=8, method="morton")
+    assert int(want.mask.sum()) > 1000
+    assert torch.equal(got.mask.cpu(), want.mask)
+    xyz = cpu.xyz[perm].double()
+    exact = normals._leaf_normals(xyz[:, 0], xyz[:, 1], xyz[:, 2],
+                                  cpu.mask[perm], 8)
+    m = want.mask
+    gpu_stray = (got.normals.cpu()[m].double()
+                 - exact.normals[m]).abs().amax(-1)
+    cpu_stray = (want.normals[m].double() - exact.normals[m]).abs().amax(-1)
+    q_g, q_c = (float(torch.quantile(s, 0.99))
+                for s in (gpu_stray, cpu_stray))
+    assert q_g <= 2.0 * q_c + 1e-4, (q_g, q_c, float(gpu_stray.max()),
+                                     float(cpu_stray.max()))
+
+
+def test_kernel_at_the_merge_ratio_matches_plain(cuda_device):
+    """K2 as the multi-trajectory merge runs it, scaled down: 8 pairs of a
+    4096-slot source against 512 leaf-8 targets (the merge's 8:1 ratio of
+    65536 to 8192), the kernel against ``_nearest_plain`` on the same
+    card."""
+    rng = np.random.default_rng(45)
+    q, t, mask = _problem(rng, (8,), 4096, 512, 32)
+    qd, td, md = (torch.from_numpy(x).to(cuda_device) for x in (q, t, mask))
+    before = tnn.launches["batched"]
+    d_k, i_k = tnn.nearest_1(qd, td, md)
+    assert tnn.launches["batched"] == before + 1
+    d_p, i_p = tnn._nearest_plain(
+        qd, torch.where(md[..., None], td, tnn._FAR), md)
+    assert float((i_k == i_p).float().mean()) >= 0.999
+    assert float((d_k - d_p).abs().max()) <= 5e-2

@@ -1,7 +1,7 @@
 """Parity of the PyTorch port's chunked type-6 front end and pipelined
 ``MapBuilder`` (staticmapping_torch.builder) with the JAX package, on the
 CPU: one ``DeviceFrontEnd`` chunk from the same state, the whole slice on a
-short synthetic sequence, and the options the port refuses."""
+short synthetic sequence, and the entry points' default device."""
 import os
 
 import jax
@@ -197,20 +197,6 @@ def test_memory_manager_offloads_inactive_submaps(tmp_path):
     assert mm.tick(2.0) == 4          # all but the last two aged past 1 s
     assert sum(s.cloud_in_memory for s in traj) == 2
     assert traj[0].cloud is not None and traj[0].cloud_in_memory
-
-
-def _gate_cases():
-    return {"map_package": dict(save_map_package=True)}
-
-
-@pytest.mark.parametrize("case", sorted(_gate_cases()))
-def test_unported_options_raise(case, tmp_path):
-    """Every option whose code is not ported raises NotImplementedError at
-    construction (the map package)."""
-    kw = {"pipelined": True, "export_file_path": str(tmp_path),
-          **_gate_cases()[case]}
-    with pytest.raises(NotImplementedError):
-        tmb.MapBuilder(tmb.MapBuilderOptions(**kw), device=CPU)
 
 
 def test_entry_points_need_cuda_by_default():

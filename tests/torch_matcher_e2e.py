@@ -11,6 +11,7 @@ from staticmapping_torch.builder.frame import SubmapOptions
 from staticmapping_torch.builder.frontend import FrontEndOptions
 from staticmapping_torch.builder.map_builder import (MapBuilder,
                                                      MapBuilderOptions)
+from staticmapping_torch.common import np_se3
 from staticmapping_torch.io import kitti as kitti_io
 from staticmapping_torch.io import synthetic
 
@@ -35,16 +36,19 @@ def options(matcher_type: int, scan_capacity: int = 8192
 
 def run_ate(matcher_type: int, n_scans: int = 16, step: float = 0.5,
             max_points: int = 6000, max_range: float = 70.0,
-            pipelined: bool = False) -> float:
+            pipelined: bool = False, trajectory: str = "straight",
+            seed: int = 4, use_imu: bool = False) -> float:
     """ATE (m) of one run, its keyframes matched to the ground truth by
-    stamp.  torch's CPU pool is held to 2 threads for the run: beside five
-    other test processes on an 8-core CPU, pools of 4 and 8 threads slowed
-    the whole suite by 40% and 60%."""
+    stamp.  With ``use_imu`` a 100 Hz gyro, the ground truth's constant
+    body rate over each scan interval plus noise, is fed before each scan.
+    torch's CPU pool is held to 2 threads for the run: beside five other
+    test processes on an 8-core CPU, pools of 4 and 8 threads slowed the
+    whole suite by 40% and 60%."""
     saved = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
         scans, gt = synthetic.make_sequence(
-            n_scans=n_scans, seed=4, trajectory="straight", step=step,
+            n_scans=n_scans, seed=seed, trajectory=trajectory, step=step,
             max_points=max_points, max_range=max_range)
         cap = 8192 if max_points <= 8192 else 32768
         opts = options(matcher_type, scan_capacity=cap)
@@ -52,8 +56,17 @@ def run_ate(matcher_type: int, n_scans: int = 16, step: float = 0.5,
             opts.pipelined = True
             opts.pipeline_chunk = 8
             opts.pair_match_batch = 4
+        opts.use_imu = use_imu
         mb = MapBuilder(opts, device="cpu")
+        rng = np.random.default_rng(0)
         for i, pts in enumerate(scans):
+            if use_imu and i > 0:
+                rel = np.linalg.solve(gt[i - 1], gt[i])
+                w = np_se3.matrix_to_euler(rel[:3, :3]) / 0.1
+                for k in range(10):
+                    mb.insert_imu((i - 1) * 0.1 + (k + 1) * 0.01,
+                                  w + rng.normal(0, 0.01, 3),
+                                  np.array([0.0, 0.0, 9.81]))
             mb.insert_pointcloud(i * 0.1, pts)
         if pipelined:
             mb.options.output_kitti_pose = False
