@@ -42,7 +42,13 @@ compiler per source, all started together), then, one phase after another:
   sequential run with the back end stopped, checkpointed, reloaded and
   resumed against an uninterrupted one, and the multi-trajectory merge of
   two passes on K2; then K2 at the merge's shape held to its plain version
-  and timed.
+  and timed;
+- ``multidevice``: the loop verifier's batch (18 pairs at the back-end
+  path's widths, on K2) through ``align_pairs_sharded`` and a 4096-node
+  pose graph through ``solve_sharded``, on two ranks spawned on the one
+  card over gloo and then on one rank over NCCL, each held to one
+  process's unsharded call; each rank holds one of its K2 calls to the
+  plain version.  Two ranks on one card measure correctness, not scaling.
 Each path's launch counts are set to 0 just before it and read just after.
 Every phase prints one JSON line; the line before the last lists the
 kernels, and the last line is ``{"ok": true, "device": ...}``.  Any failure
@@ -1575,6 +1581,357 @@ def outputs_path(nn_search) -> dict:
                          for k in NN_KERNELS}}
 
 
+# ---------------------------------------------------------------------------
+# the multidevice path
+# ---------------------------------------------------------------------------
+
+# two ranks share the one card over gloo: NCCL refuses two ranks on one GPU
+MD_RANKS = 2
+# a collective fails after MD_TIMEOUT_S; the smoke waits MD_WAIT_S for the
+# ranks' results (their start, about 10 s each, included)
+MD_TIMEOUT_S = 60
+MD_WAIT_S = 300
+# the loop verifier's batch at the back-end path's widths: submap k + 1
+# onto submap k of the square world (two scans a submap, at the submap
+# capacity), 6 candidates x 3 yaw guesses, as LoopDetector._close_loops
+# stacks them (thinned sources, leaf-normal targets)
+MD_SUBMAPS = 7
+MD_YAWS = (0.0, 0.06, -0.06)
+# tests/test_pose_graph.py::_square_circuit's construction at 4096 nodes,
+# solved with 5 GN trips
+MD_CIRCUIT = {"n": 4096, "laps": 4, "step_len": 0.5, "drift": 0.02,
+              "seed": 4}
+MD_GN_TRIPS = 5
+
+
+def square_circuit(device, n, laps, step_len, drift, seed):
+    """The port's ``PoseGraph`` of tests/test_pose_graph.py's
+    ``_square_circuit`` (a square driven ``laps`` times, noisy odometry, a
+    loop factor every 40 nodes after the first lap) and its odometry
+    poses."""
+    from staticmapping_torch.backend.pose_graph import PoseGraph
+    from staticmapping_torch.common import np_se3
+    rng = np.random.default_rng(seed)
+    per_side = n // (4 * laps)
+    turn = np_se3.euler_to_matrix(np.array([0, 0, np.pi / 2]))
+    gt = [np.eye(4)]
+    for k in range(n - 1):
+        step = np.eye(4)
+        step[0, 3] = step_len
+        if (k + 1) % per_side == 0:
+            step[:3, :3] = turn
+        gt.append(np_se3.normalize_rotation(gt[-1] @ step))
+    g = PoseGraph(device=device)
+    for _ in range(n):
+        g.add_node()
+    odom = [gt[0]]
+    for k in range(n - 1):
+        nr = np_se3.inverse(gt[k]) @ gt[k + 1]
+        nr[:3, 3] += rng.normal(0, drift, 3)
+        g.add_between(k, k + 1, nr)
+        odom.append(np_se3.normalize_rotation(odom[-1] @ nr))
+    lap = 4 * per_side
+    for k in range(lap, n, 40):
+        g.add_between(k, k - lap, np_se3.inverse(gt[k]) @ gt[k - lap],
+                      sigmas=(0.05,) * 3 + (0.02,) * 3)
+    return g, np.stack(odom)
+
+
+def multidevice_inputs(device, n_submaps: int = MD_SUBMAPS,
+                       circuit=MD_CIRCUIT, capacity: int = 65536,
+                       max_points: int = 20000) -> dict:
+    """Host copies of the verifier's pair batch, built on ``device`` as the
+    loop detector builds it, the verifier's settings from
+    config/synthetic.xml, and the circuit's solver arguments.  The
+    defaults are the back-end path's widths (the submap capacity, the
+    synthetic renderer's points a scan)."""
+    from staticmapping_torch.builder.frontend import _target_normals
+    from staticmapping_torch.common import np_se3
+    from staticmapping_torch.config import load_config
+    from staticmapping_torch.data import cloud as cloud_lib
+    from staticmapping_torch.io import synthetic
+    from staticmapping_torch.parallel.align_pairs import stack_pairs
+    from staticmapping_torch.registration.icp_pm import (IcpPointMatcher,
+                                                         _hash_thin)
+    B = BACKEND_PATH
+    lds = load_config(os.path.join(ROOT, B["cfg"])).loop_detector
+    pm = IcpPointMatcher()
+    scans, gt = synthetic.make_sequence(n_scans=2 * n_submaps,
+                                        trajectory=B["trajectory"],
+                                        seed=B["seed"],
+                                        max_points=max_points)
+    clouds, poses = [], []
+    for k in range(n_submaps):
+        a, b = 2 * k, 2 * k + 1
+        rel = np_se3.inverse(gt[a]) @ gt[b]
+        pts = np.concatenate([scans[a][:, :3],
+                              scans[b][:, :3] @ rel[:3, :3].T + rel[:3, 3]])
+        clouds.append(cloud_lib.from_numpy(pts, capacity=capacity,
+                                           device=device))
+        poses.append(gt[a])
+    rng = np.random.default_rng(8)
+    sources, targets, guesses = [], [], []
+    for k in range(n_submaps - 1):
+        g0 = np_se3.inverse(poses[k]) @ poses[k + 1]
+        g0 = g0 @ np_se3.from_rt(np_se3.euler_to_matrix(
+            rng.uniform(-0.02, 0.02, 3)), rng.uniform(-0.3, 0.3, 3))
+        src = _hash_thin(clouds[k + 1], pm.reading_sample_prob)
+        tgt = _target_normals(clouds[k], leaf_size=lds.normal_leaf_size)
+        for dy in MD_YAWS:
+            g = g0.copy()
+            g[:3, :3] = g0[:3, :3] @ np_se3.euler_to_matrix(
+                np.array([0.0, 0.0, dy]))
+            sources.append(src)
+            targets.append(tgt)
+            guesses.append(g)
+    bs, bt, gs = stack_pairs(sources, targets, guesses)
+    graph, odom = square_circuit(device, **circuit)
+    args, _, _ = graph.solver_args(odom)
+    return {
+        "src": {f: getattr(bs, f).cpu().numpy()
+                for f in ("xyz", "intensity", "factor", "mask")},
+        "tgt": {f: getattr(bt, f).cpu().numpy()
+                for f in ("xyz", "normals", "mask")},
+        "guesses": gs.cpu().numpy(),
+        "align": {"dist_outlier_ratio": pm.dist_outlier_ratio,
+                  "max_iteration": pm.max_iteration,
+                  "fixed_iterations": lds.fixed_iterations,
+                  "score_spacing_ref": lds.score_spacing_ref},
+        "graph": [a.cpu().numpy() if torch.is_tensor(a) else a
+                  for a in args],
+        "nodes": circuit["n"],
+    }
+
+
+def _md_batch(inputs, device):
+    from staticmapping_torch import interop
+    return (interop.point_cloud(inputs["src"], device),
+            interop.normal_cloud(inputs["tgt"], device),
+            torch.from_numpy(inputs["guesses"]).to(device))
+
+
+def _md_timed(device, fn):
+    """``(result, seconds)`` of one ``fn()`` up to its results on
+    ``device``."""
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def _md_run(mesh, inputs, nn_search) -> dict:
+    """The sharded verifier batch and the sharded solve on ``mesh``: the
+    first run of each counted (K2's launches) and checked, the second
+    timed."""
+    from staticmapping_torch import interop
+    from staticmapping_torch.backend.pose_graph_sparse import solve_sharded
+    from staticmapping_torch.parallel import multihost
+    from staticmapping_torch.parallel.align_pairs import align_pairs_sharded
+    dev = mesh.device
+    batch = _md_batch(inputs, dev)
+    args = interop.solver_args(inputs["graph"], dev)
+
+    def align():
+        return align_pairs_sharded(*batch, mesh, **inputs["align"])
+
+    def solve():
+        return solve_sharded(mesh, *args, num_iters=MD_GN_TRIPS)
+
+    nn_search.reset_launches()
+    (Ts, scores, mean), _ = _md_timed(dev, align)
+    launches = dict(nn_search.launches)
+    _, align_s = _md_timed(dev, align)
+    (poses, chi2, _), _ = _md_timed(dev, solve)
+    _, solve_s = _md_timed(dev, solve)
+    # one matvec's sum over the mesh, the collective the solve repeats
+    v = torch.zeros((poses.shape[0], 6), dtype=torch.float32, device=dev)
+    _, reduce_s = _md_timed(dev, lambda: [multihost.all_reduce(v, mesh)
+                                          for _ in range(50)])
+    return {"Ts": Ts.cpu().numpy(), "scores": scores.cpu().numpy(),
+            "mean_score": float(mean), "poses": poses.cpu().numpy(),
+            "chi2": float(chi2), "align_s": align_s, "solve_s": solve_s,
+            "matvec_all_reduce_ms": reduce_s * 1e3 / 50,
+            "launches": launches, "batch": batch}
+
+
+def _md_rank(rank: int, port: int, device: str, inputs: dict, queue) -> None:
+    """One rank of the two-rank run (a spawned process): join the gloo
+    group on ``device``, run the sharded path, hold one of this rank's K2
+    calls to the plain version, and put the results on ``queue``."""
+    import datetime
+    import traceback
+    try:
+        from staticmapping_torch import cuda_build
+        from staticmapping_torch.ops import nn_search
+        from staticmapping_torch.parallel import multihost
+        dev = multihost.initialize(
+            f"localhost:{port}", MD_RANKS, rank, backend="gloo",
+            timeout=datetime.timedelta(seconds=MD_TIMEOUT_S), device=device)
+        if dev.type == "cuda" and not os.path.exists(
+                cuda_build.library_path("nn_search")):
+            raise RuntimeError("the nn_search kernel was not built before "
+                               "the ranks started")
+        mesh = multihost.global_mesh(device=dev)
+        out = _md_run(mesh, inputs, nn_search)
+        src, tgt, _ = out.pop("batch")
+        per = src.xyz.shape[0] // mesh.size
+        mine = slice(rank * per, (rank + 1) * per)
+        k2 = {}
+        if dev.type == "cuda":
+            # the rows the thinning or the padding masked out hold no
+            # defined query; the origin stands in for them
+            q = torch.where(src.mask[mine][..., None], src.xyz[mine], 0.0)
+            t, m = tgt.xyz[mine], tgt.mask[mine]
+            agree, err, _, _ = hold_to_plain(
+                nn_search, q, t, m, torch.where(m[..., None], t,
+                                                nn_search._FAR),
+                f"k2_rank{rank}")
+            k2 = {"shape": list(q.shape[:2]) + [t.shape[1]],
+                  "idx_agree": agree, "max_abs_err": err}
+        torch.distributed.destroy_process_group()
+        queue.put({"rank": rank, "device": str(dev), "k2_vs_plain": k2,
+                   **out})
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+
+
+def _md_gaps(out: dict, ref: dict) -> dict:
+    return {"Ts": float(np.abs(out["Ts"] - ref["Ts"]).max()),
+            "scores": float(np.abs(out["scores"] - ref["scores"]).max()),
+            "mean_score": abs(out["mean_score"]
+                              - float(np.mean(ref["scores"]))),
+            "poses": float(np.abs(out["poses"] - ref["poses"]).max()),
+            "chi2_rel": abs(out["chi2"] - ref["chi2"]) / max(1.0,
+                                                              ref["chi2"])}
+
+
+def _md_check(label: str, gaps: dict) -> None:
+    if not (gaps["Ts"] <= 1e-3 and gaps["scores"] <= 1e-3
+            and gaps["mean_score"] <= 1e-3 and gaps["poses"] <= 2e-3
+            and gaps["chi2_rel"] <= 0.1):
+        raise AssertionError(f"multidevice {label} against one process: "
+                             f"{gaps}")
+
+
+def multidevice_path(nn_search, device=DEV, inputs=None) -> dict:
+    """The sharded pair registration (the loop verifier's batch on K2) and
+    the sharded PCG solve, each held to one process's unsharded call on
+    the same inputs: two ranks on ``device`` over gloo (spawned), then one
+    rank over NCCL in this process.  Two ranks sharing one card measure
+    correctness, not scaling."""
+    import socket
+    import queue as queue_lib
+    import torch.multiprocessing as mp
+    from staticmapping_torch import interop
+    from staticmapping_torch.backend.pose_graph_sparse import (
+        gauss_newton_pcg)
+    from staticmapping_torch.parallel import multihost
+    from staticmapping_torch.parallel.align_pairs import align_pairs
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            return sock.getsockname()[1]
+
+    t_phase = time.perf_counter()
+    inputs = inputs or multidevice_inputs(device)
+    batch = _md_batch(inputs, device)
+    args = interop.solver_args(inputs["graph"], device)
+    ref = {}
+    (Ts, scores), _ = _md_timed(device, lambda: align_pairs(
+        *batch, **inputs["align"]))
+    _, ref["align_s"] = _md_timed(device, lambda: align_pairs(
+        *batch, **inputs["align"]))
+    (poses, chi2, _), _ = _md_timed(device, lambda: gauss_newton_pcg(
+        *args, num_iters=MD_GN_TRIPS))
+    _, ref["solve_s"] = _md_timed(device, lambda: gauss_newton_pcg(
+        *args, num_iters=MD_GN_TRIPS))
+    ref.update(Ts=Ts.cpu().numpy(), scores=scores.cpu().numpy(),
+               poses=poses.cpu().numpy(), chi2=float(chi2))
+    del batch, args
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_md_rank,
+                         args=(r, port, str(device), inputs, results))
+             for r in range(MD_RANKS)]
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        ranks = [results.get(timeout=MD_WAIT_S) for _ in procs]
+        for p in procs:
+            p.join(timeout=MD_TIMEOUT_S)
+    except queue_lib.Empty:
+        raise AssertionError(f"multidevice: a rank gave no result within "
+                             f"{MD_WAIT_S} s") from None
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    group_s = time.perf_counter() - t0
+    ranks.sort(key=lambda r: r["rank"])
+    for r in ranks:
+        if "error" in r:
+            raise AssertionError(f"multidevice rank {r['rank']} failed:\n"
+                                 f"{r['error']}")
+
+    # one rank over NCCL in this process: the backend and the helpers on
+    # CUDA tensors
+    nccl = None
+    if device.type == "cuda":
+        import datetime
+        multihost.initialize(f"localhost:{free_port()}", 1, 0,
+                             backend="nccl", device=device,
+                             timeout=datetime.timedelta(seconds=MD_TIMEOUT_S))
+        try:
+            nccl = _md_run(multihost.global_mesh(device=device), inputs,
+                           nn_search)
+            nccl.pop("batch")
+        finally:
+            torch.distributed.destroy_process_group()
+
+    def summary(out):
+        return {"align_s": out["align_s"], "solve_s": out["solve_s"],
+                "matvec_all_reduce_ms": out["matvec_all_reduce_ms"],
+                "launches": out["launches"], "gaps": _md_gaps(out, ref)}
+
+    res = {"phase": "multidevice",
+           "note": "two ranks share one card: their times measure "
+                   "correctness, not scaling",
+           "pairs": list(inputs["src"]["xyz"].shape[:2])
+                    + [inputs["tgt"]["xyz"].shape[1]],
+           "align": inputs["align"], "nodes": inputs["nodes"],
+           "gn_trips": MD_GN_TRIPS,
+           "single_process": {"align_s": ref["align_s"],
+                              "solve_s": ref["solve_s"], "chi2": ref["chi2"]},
+           "gloo_ranks": [{"rank": r["rank"], "device": r["device"],
+                           "k2_vs_plain": r["k2_vs_plain"], **summary(r)}
+                          for r in ranks],
+           "gloo_group_s": group_s,
+           "nccl_one_rank": summary(nccl) if nccl else None,
+           "launches": {k: sum(r["launches"][k] for r in ranks)
+                        + (nccl["launches"][k] if nccl else 0)
+                        for k in NN_KERNELS},
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    for r in ranks:
+        _md_check(f"rank {r['rank']}", _md_gaps(r, ref))
+        for key in ("Ts", "scores", "poses"):
+            if not np.array_equal(r[key], ranks[0][key]):
+                raise AssertionError(f"multidevice: rank {r['rank']}'s "
+                                     f"{key} differ from rank 0's")
+    if nccl:
+        _md_check("nccl", _md_gaps(nccl, ref))
+    if device.type == "cuda" and not all(
+            r["launches"]["batched"] > 0 for r in ranks):
+        raise AssertionError("multidevice: a rank never launched K2")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -1614,6 +1971,7 @@ def main() -> int:
     backend = backend_path(nn_search)
     matchers = matchers_path(nn_search)
     outputs = outputs_path(nn_search)
+    multidevice = multidevice_path(nn_search)
 
     def entry(meta, source, launches, t):
         return {"name": meta["name"], "route": "cuda", "source": source,
@@ -1623,12 +1981,13 @@ def main() -> int:
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
     # K1 and K2 launch on the main path, the back-end path, the three
-    # matcher runs and the outputs path's three parts
+    # matcher runs, the outputs path's three parts and the multidevice
+    # path's ranks
     emit({"kernels": [
         entry(meta, NN_SOURCE,
               res["launches"][k] + backend["launches"][k]
               + sum(r["launches"][k] for r in matchers["runs"].values())
-              + outputs["launches"][k],
+              + outputs["launches"][k] + multidevice["launches"][k],
               timing[k])
         for k, meta in NN_KERNELS.items()] + [
         entry(meta, VARIANT_SOURCE, bench["launches"][k], vtiming[k])

@@ -90,11 +90,16 @@ class LoopDetector:
     """Feed submaps with :meth:`add_frame`.  Submaps expose ``global_pose``
     (np [4,4]), ``cloud`` (PointCloud) and ``descriptor``.  Descriptor
     scores are computed on ``device`` (the GPU unless named); the clouds
-    stay where the submaps hold them."""
+    stay where the submaps hold them.  With a ``mesh``
+    (``parallel.multihost``) the candidate re-registrations are sharded
+    over its ranks, each of which runs the same detector on the same
+    submaps."""
 
-    def __init__(self, settings: LoopDetectorSettings = None, device=None):
+    def __init__(self, settings: LoopDetectorSettings = None, device=None,
+                 mesh=None):
         self.settings = settings or LoopDetectorSettings()
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.frames = []                      # submap refs
         self.descriptors: List[np.ndarray] = []
         self.status = LoopStatus.NO_LOOP
@@ -258,7 +263,7 @@ class LoopDetector:
                 guesses.append(g)
         with prof.block("LoopVerifier"):
             Ts, scores = align_pair_list(
-                sources, targets, guesses,
+                sources, targets, guesses, mesh=self.mesh,
                 dist_outlier_ratio=pm.dist_outlier_ratio,
                 max_iteration=pm.max_iteration,
                 # candidates arrive 1..nearest_history_pos_num+1 at a time:

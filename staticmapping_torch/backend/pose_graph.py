@@ -605,16 +605,20 @@ class PoseGraph:
 
         solver: "dense" (one linear solve a trip — small graphs), "pcg"
         (matrix-free block-sparse GN+PCG — large graphs), or "auto" (by node
-        count).  A ``mesh`` (the sharded solve) is not ported."""
+        count).  A ``mesh`` (``parallel.multihost``) turns the PCG path into
+        the sharded solve (between factors sharded over the mesh's ranks,
+        every rank calling with the same graph); the dense solver ignores
+        it, as in the JAX package."""
         from . import pose_graph_sparse
-        if mesh is not None:
-            return pose_graph_sparse.solve_sharded(mesh)
         args, ncap, sp_base = self.solver_args(poses_np)
         if solver == "auto":
             solver = "dense" if ncap <= self.DENSE_NODE_LIMIT else "pcg"
         if solver == "dense":
             out, chi2, self.last_trace = gauss_newton(
                 *args, num_iters=num_iters)
+        elif solver == "pcg" and mesh is not None:
+            out, chi2, self.last_trace = pose_graph_sparse.solve_sharded(
+                mesh, *args, num_iters=num_iters)
         elif solver == "pcg":
             out, chi2, self.last_trace = pose_graph_sparse.gauss_newton_pcg(
                 *args, num_iters=num_iters)

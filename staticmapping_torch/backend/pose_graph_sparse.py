@@ -19,13 +19,23 @@ The JAX package runs CG as a device ``while_loop`` on ``‖r‖ > tol·‖rhs‖
 Here a system that meets the test (or the trip cap) freezes its state, and
 the host reads the flag only between blocks of ``_CG_CHECK_EVERY`` trips:
 the result is the one a check every trip gives, with a tenth of the syncs.
-The sharded solve (factor shards over a device mesh) is not ported.
+
+Distribution: :func:`solve_sharded` gives each rank of a mesh
+(``parallel/multihost.py``) a contiguous shard of the between factors.
+Every rank linearizes its shard, and the partial sums of the cost, the
+gradient, the block diagonal, every matvec and the final χ² are summed
+over the mesh (``all_reduce``, the JAX package's ``psum``); the PCG state
+stays replicated.  The small factor types (GPS, odom, prior) are
+replicated and scaled by 1/D before the sum, as in the JAX package, so it
+counts them once.  Both host decisions, the CG's "still running" and the
+LM accept, come from summed values, so every rank takes the same branch.
 """
 from __future__ import annotations
 
 import torch
 
 from ..common import se3
+from ..parallel.multihost import all_reduce, check_mesh
 from .pose_graph import (_between_cost, _F32, _lin_aux, _lin_between,
                          _lm_update, _make_total_cost)
 
@@ -46,26 +56,47 @@ def _add_rows(out: torch.Tensor, idx, vals: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, idx, vals)
 
 
-def gauss_newton_pcg(poses, node_mask,
-                     fi, fj, T_meas, inv_sigmas, fmask,
-                     gi, g_enu, g_ptg, g_inv_s, g_use_err, gmask,
-                     gps_coord_idx, gps_calib_idx,
-                     oi, o_T, o_inv_s, omask, odom_calib_idx, huber_k,
-                     pi, p_T, p_inv_s, pmask,
-                     num_iters: int = 8, cg_iters: int = 250,
-                     damping: float = 1e-6, gauge_weight: float = 1e8,
-                     cg_tol: float = 1e-8):
-    """Matrix-free GN/LM + PCG (the argument list of
-    :func:`pose_graph.gauss_newton`; the JAX package's ``_pcg_core`` and
-    its jitted wrapper in one); returns ``(poses, chi2, trace)``."""
+def _pcg_core(poses, node_mask,
+              fi, fj, T_meas, inv_sigmas, fmask,
+              gi, g_enu, g_ptg, g_inv_s, g_use_err, gmask,
+              gps_coord_idx, gps_calib_idx,
+              oi, o_T, o_inv_s, omask, odom_calib_idx, huber_k,
+              pi, p_T, p_inv_s, pmask,
+              num_iters: int = 8, cg_iters: int = 250,
+              damping: float = 1e-6, gauge_weight: float = 1e8,
+              cg_tol: float = 1e-8, mesh=None):
+    """GN/LM + PCG on this rank's between factors; with a ``mesh`` the
+    partial sums are summed over its ranks (see the module note)."""
     n = poses.shape[0]
     dev = poses.device
-    total_cost = _make_total_cost(
+    total_local = _make_total_cost(
         fi, fj, T_meas, inv_sigmas, fmask,
         gi, g_enu, g_ptg, g_inv_s, g_use_err, gmask,
         gps_coord_idx, gps_calib_idx,
         oi, o_T, o_inv_s, omask, odom_calib_idx, huber_k,
         pi, p_T, p_inv_s, pmask)
+    if mesh is None:
+        total_cost = total_local
+    else:
+        inv_d = 1.0 / mesh.size
+
+        def total_cost(p):
+            # between factors sharded, the rest replicated (scaled by 1/D)
+            c_btw = _between_cost(p, fi, fj, T_meas, inv_sigmas, fmask)
+            return all_reduce(
+                (c_btw + (total_local(p) - c_btw) * inv_d).reshape(1),
+                mesh)[0]
+
+    def small(t):
+        """The accumulator of the replicated factors' share of ``t``."""
+        return t if mesh is None else torch.zeros_like(t)
+
+    def combine(t, t_small):
+        """The mesh's sum of the between share ``t`` and the replicated
+        share ``t_small`` (one copy of it)."""
+        if mesh is None:
+            return t
+        return all_reduce(t + t_small * inv_d, mesh)
     eye6 = torch.eye(6, dtype=_F32, device=dev)
     base = torch.full((n, 6), damping, dtype=_F32, device=dev)
     base[0] += gauge_weight
@@ -96,10 +127,12 @@ def gauss_newton_pcg(poses, node_mask,
         _add_rows(b, fj, b_j)
         _add_rows(D, fi, H_ii)
         _add_rows(D, fj, H_jj)
+        b_s, D_s = small(b), small(D)
         for spec, (Hk, bk) in aux:
             for idx, sl in spec:
-                _add_rows(b, idx, bk[:, sl])
-                _add_rows(D, idx, Hk[:, sl, sl])
+                _add_rows(b_s, idx, bk[:, sl])
+                _add_rows(D_s, idx, Hk[:, sl, sl])
+        b, D = combine(b, b_s), combine(D, D_s)
 
         # ---- scalar diagonal: damping, gauge, inactive nodes, LM ----
         diag_h = torch.diagonal(D, dim1=1, dim2=2)
@@ -115,13 +148,14 @@ def gauss_newton_pcg(poses, node_mask,
             u = torch.zeros((n, 6), dtype=_F32, device=dev)
             u.index_add_(0, fi, _bmv(H_ii, vi) + _bmv(H_ij, vj))
             u.index_add_(0, fj, _bmv(H_ji, vi) + _bmv(H_jj, vj))
+            u_s = small(u)
             for spec, (Hk, _) in aux:
                 f = Hk.shape[0]
                 uk = _bmv(Hk, torch.cat([v[idx].expand(f, 6)
                                          for idx, _ in spec], dim=1))
                 for idx, sl in spec:
-                    _add_rows(u, idx, uk[:, sl])
-            return u + extra * v
+                    _add_rows(u_s, idx, uk[:, sl])
+            return combine(u, u_s) + extra * v
 
         # ---- PCG on H dx = −b, frozen once converged ----
         rhs = -b
@@ -150,8 +184,14 @@ def gauss_newton_pcg(poses, node_mask,
                 p = torch.where(active, p_n, p)
                 rz = torch.where(active, rz_n, rz)
                 k = k + active.to(torch.int64)
-            if not bool((k < cg_iters) & (torch.sqrt(torch.sum(r * r))
-                                          > limit)):
+            running = ((k < cg_iters)
+                       & (torch.sqrt(torch.sum(r * r)) > limit))
+            if mesh is not None:
+                # the state is replicated; the sum keeps every rank in
+                # step even if one read it otherwise
+                running = all_reduce(running.to(torch.int32).reshape(1),
+                                     mesh)[0] > 0
+            if not bool(running):
                 break
         dx = torch.where(torch.isfinite(x), x, 0.0)
 
@@ -161,12 +201,57 @@ def gauss_newton_pcg(poses, node_mask,
         trace.append(t)
 
     chi2 = _between_cost(poses, fi, fj, T_meas, inv_sigmas, fmask)
+    if mesh is not None:
+        chi2 = all_reduce(chi2.reshape(1), mesh)[0]
     return poses, chi2, torch.stack(trace, dim=1)
 
 
-def solve_sharded(mesh, *args, **kwargs):
-    """The JAX package shards the between factors over a device mesh; the
-    port has no multi-device path yet."""
-    raise NotImplementedError(
-        "staticmapping_torch does not support the sharded pose-graph solve: "
-        "multi-device execution is ROADMAP.md queue A item 18")
+def gauss_newton_pcg(poses, node_mask,
+                     fi, fj, T_meas, inv_sigmas, fmask,
+                     gi, g_enu, g_ptg, g_inv_s, g_use_err, gmask,
+                     gps_coord_idx, gps_calib_idx,
+                     oi, o_T, o_inv_s, omask, odom_calib_idx, huber_k,
+                     pi, p_T, p_inv_s, pmask,
+                     num_iters: int = 8, cg_iters: int = 250,
+                     damping: float = 1e-6, gauge_weight: float = 1e8,
+                     cg_tol: float = 1e-8):
+    """Single-device matrix-free GN/LM + PCG (the argument list of
+    :func:`pose_graph.gauss_newton`); returns ``(poses, chi2, trace)``."""
+    return _pcg_core(poses, node_mask,
+                     fi, fj, T_meas, inv_sigmas, fmask,
+                     gi, g_enu, g_ptg, g_inv_s, g_use_err, gmask,
+                     gps_coord_idx, gps_calib_idx,
+                     oi, o_T, o_inv_s, omask, odom_calib_idx, huber_k,
+                     pi, p_T, p_inv_s, pmask,
+                     num_iters=num_iters, cg_iters=cg_iters, damping=damping,
+                     gauge_weight=gauge_weight, cg_tol=cg_tol)
+
+
+def solve_sharded(mesh, poses, node_mask,
+                  fi, fj, T_meas, inv_sigmas, fmask,
+                  *rest, num_iters: int = 8, cg_iters: int = 250,
+                  damping: float = 1e-6, gauge_weight: float = 1e8,
+                  cg_tol: float = 1e-8):
+    """Distributed solve: rank r of ``mesh`` takes the contiguous shard
+    ``[r·F/D, (r+1)·F/D)`` of the five between-factor arrays; ``poses``,
+    ``node_mask`` and ``rest`` (the GPS, odom and prior factors of
+    :func:`gauss_newton_pcg`'s argument list) are the same on every rank.
+    The between-factor capacity F must be divisible by the mesh size D
+    (pad with masked factors).  Returns ``(poses, chi2, trace)``, the same
+    on every rank."""
+    check_mesh(mesh)
+    if poses.device != mesh.device:
+        raise ValueError(f"the graph lies on {poses.device}, the mesh's "
+                         f"rank computes on {mesh.device}")
+    f = fi.shape[0]
+    if f % mesh.size:
+        raise ValueError(f"between-factor capacity {f} not divisible by "
+                         f"mesh size {mesh.size}")
+    per = f // mesh.size
+    shard = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    return _pcg_core(poses, node_mask,
+                     *(a[shard] for a in (fi, fj, T_meas, inv_sigmas,
+                                          fmask)),
+                     *rest, num_iters=num_iters, cg_iters=cg_iters,
+                     damping=damping, gauge_weight=gauge_weight,
+                     cg_tol=cg_tol, mesh=mesh)

@@ -397,9 +397,11 @@ def test_pcg_past_the_dense_limit_matches_jax():
 
 
 def test_sharded_solve_is_refused():
+    """The sharded PCG solve takes only the port's mesh (a JAX mesh or any
+    other object is refused); tests/test_torch_multidevice.py runs it."""
     g, odom, _ = _tgraph(GRAPHS["loop"])
-    with pytest.raises(NotImplementedError, match="item 18"):
-        g.optimize(np.stack(odom), mesh=object())
+    with pytest.raises(TypeError, match="multihost.Mesh"):
+        g.optimize(np.stack(odom), solver="pcg", mesh=object())
 
 
 def test_view_graph_matches_jax(tmp_path):

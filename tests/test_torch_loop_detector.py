@@ -28,7 +28,7 @@ from staticmapping_torch.builder import frontend as tfrontend
 from staticmapping_torch.builder import map_builder as tmb
 from staticmapping_torch.common import np_se3
 from staticmapping_torch.io import kitti as tkitti
-from staticmapping_torch.parallel import align_pairs as tap
+from staticmapping_torch import parallel as tap
 from staticmapping_torch.registration import gicp as tgicp
 from staticmapping_torch.registration import icp_pm as ticp_pm
 
@@ -166,9 +166,12 @@ def test_pad_pairs_matches_jax():
 
 
 def test_sharded_pair_registration_is_refused():
-    with pytest.raises(NotImplementedError, match="item 18"):
+    """Without a process group there is no mesh, and a mesh that is not
+    the port's is refused; tests/test_torch_multidevice.py runs the
+    sharded path."""
+    with pytest.raises(RuntimeError, match="process group"):
         tap.make_submap_mesh()
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="multihost.Mesh"):
         tap.align_pair_list([], [], [], mesh=object())
 
 

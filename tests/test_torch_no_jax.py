@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``staticmapping_torch``, not
-``chip_smoke.py`` and not the GPU tests (which run where JAX is not
-installed) import JAX or the JAX package, and importing the port in a fresh
+``chip_smoke.py``, not the GPU tests (which run where JAX is not
+installed) and not the multi-device test's ranks import JAX or the JAX
+package, and importing the port in a fresh
 interpreter loads neither."""
 import ast
 import os
@@ -20,7 +21,8 @@ def _port_sources():
              os.path.join(ROOT, "scripts", "nn_kernel_times.py"),
              os.path.join(ROOT, "scripts", "profile_main_path.py"),
              os.path.join(ROOT, "scripts", "torch_matcher_ate.py"),
-             os.path.join(ROOT, "tests", "test_torch_cuda.py")]
+             os.path.join(ROOT, "tests", "test_torch_cuda.py"),
+             os.path.join(ROOT, "tests", "torch_multidevice_worker.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "staticmapping_torch")):
         paths += [os.path.join(dirpath, f) for f in sorted(files)
                   if f.endswith(".py")]
