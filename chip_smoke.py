@@ -11,6 +11,8 @@ compiler per source, all started together), then, one phase after another:
   (the loop verifier's K2 batch, the GICP gate's K1 call);
 - ``nn_plan_sweep``: a few (R, block, S) plans of the 1-NN kernel at both
   main shapes, each held to the chosen plan's output bit for bit, timed;
+- ``random_bits``: the JAX package's uniforms (``common/random.py``, the
+  RandomSampler's draw) on the card, held to the CPU's bit for bit;
 - ``main_path``: the pipelined type-6 ``MapBuilder`` at the JAX package's
   default widths on a synthetic sequence, checked against the ground truth;
 - ``nn_variant_vs_plain``: the variant kernels (K3, K4 in both modes)
@@ -23,13 +25,14 @@ compiler per source, all started together), then, one phase after another:
 - ``cli``: ``python -m staticmapping_torch --cfg config/lidar_only_kitti.xml
   --kitti DIR --no-backend`` on .bin files of the same world at full width:
   the sequential front end and the MRVM static map, checked against the
-  ground truth;
+  ground truth and the JAX package's keyframe count and static voxels;
 - ``mrvm_vs_plain``: the MRVM's per-scan device reduction on one full-width
   submap of that run, on the GPU against the CPU;
 - ``backend``: ``python -m staticmapping_torch --synthetic square
   --pipelined`` with the pose-graph back end on (M2DP gate, the batched
   loop verifier on K2, the GICP gate on K1, the pose-graph solves), checked
   against the ground truth and the JAX package's run of the same settings;
+  then its final solve again, twice with each solver, held bit for bit;
 - ``matchers``: the other matcher types at full width
   (``scripts/main_path.py::MATCHER_PATH``): NDT-GICP (type 3, its GICP
   stage on K1) and NDT (type 5) on the chunked front end with the back end
@@ -82,12 +85,24 @@ DEV = torch.device("cuda")
 # ATE of staticmapping_tpu at MAIN_PATH, measured on a CPU by
 # scripts/jax_main_path_ate.py (160 keyframes, 80 submaps); the port must
 # stay within max(2 x this, 0.35 m), the bound of tests/test_pipeline.py.
+# Both packages' RandomSampler keeps the same points (common/random.py),
+# so the two runs see the same sample.
 JAX_ATE_M = 0.6906912932542186
 # ATE and static-map voxel count of staticmapping_tpu's CLI on CLI_PATH,
 # measured on a CPU by scripts/jax_cli_ate.py (42 keyframes, 21 submaps);
 # the port's CLI must stay within max(2 x this ATE, 0.35 m)
 JAX_CLI_ATE_M = 0.08342290625237175
 JAX_CLI_STATIC_VOXELS = 56286
+JAX_CLI_KEYFRAMES = 42
+JAX_CLI_SUBMAPS = 21
+# Both packages draw the same random bits, so the port's CLI on the CPU
+# (scripts/torch_cli_ate.py --device cpu) made the JAX run's 42 keyframes
+# and 21 submaps, its keyframes at most 1.2 cm from the JAX run's, and
+# 56239 static voxels (0.08% fewer).  On the card the port is held to
+# these counts within the bounds of tests/test_torch_random.py: keyframes
+# within 2, static voxels within 10%.
+CLI_KEYFRAME_TOL = 2
+CLI_STATIC_VOXEL_TOL = 0.10
 # ATE and loop gap of staticmapping_tpu on BACKEND_PATH's scans with the
 # back end off, measured on a CPU by scripts/jax_backend_ate.py
 # --no-backend.  Its run with the back end on did not finish in 3 hours on
@@ -461,6 +476,36 @@ def make_main_path(out_dir: str):
     return MapBuilder(opts, filter_chain=chain, device=DEV), scans, gt
 
 
+# (seed, shape) of the uniforms held to the CPU: the RandomSampler's draw
+# on the main and CLI paths (seed 0 over one scan's 32768 slots), a batch
+# of scans, and two seeds past 32 bits, of which the key keeps the low 32
+RANDOM_DRAWS = [(0, (32768,)), (7, (2, 32768)), (2**32 + 5, (65536,)),
+                (-1, (5,))]
+
+
+def random_bits() -> dict:
+    """The JAX package's uniforms drawn on the card, each held to the CPU's
+    draw bit for bit (tests/test_torch_random.py holds the CPU's to
+    ``jax.random``), and the scan-sized draw timed."""
+    from staticmapping_torch.common import random as trandom
+    draws = []
+    for seed, shape in RANDOM_DRAWS:
+        got = trandom.uniform(seed, shape, DEV).cpu()
+        want = trandom.uniform(seed, shape, "cpu")
+        draws.append({"seed": seed, "shape": list(shape),
+                      "equal": torch.equal(got.view(torch.int32),
+                                           want.view(torch.int32))})
+    res = {"phase": "random_bits", "draws": draws,
+           "scan_draw_eager_ms": time_ms(
+               lambda: trandom.uniform(0, (32768,), DEV), 20)}
+    emit(res)
+    bad = [d for d in draws if not d["equal"]]
+    if bad:
+        raise AssertionError(f"the card's uniforms differ from the CPU's: "
+                             f"{bad}")
+    return res
+
+
 def main_path(nn_search) -> dict:
     from staticmapping_torch.common import prof
     from staticmapping_torch.io import kitti
@@ -722,8 +767,11 @@ def cli_path(nn_search):
         "total_s": total, "finish_s": finish_s,
         "save_maps_s": stages["SaveMaps"]["sum"],
         "keyframes": len(frames), "submaps": len(mb.trajectory),
+        "jax_keyframes": JAX_CLI_KEYFRAMES, "jax_submaps": JAX_CLI_SUBMAPS,
+        "keyframe_tol": CLI_KEYFRAME_TOL,
         "static_voxels": len(static),
         "jax_static_voxels": JAX_CLI_STATIC_VOXELS,
+        "static_voxel_tol": CLI_STATIC_VOXEL_TOL,
         "ate_m": ate, "ate_bound_m": bound, "jax_ate_m": JAX_CLI_ATE_M,
         "launches": launches, "icp_trips": icp_fast.trip_counts(),
         "stages_ms": {k: {"count": v["count"], "sum_ms": 1e3 * v["sum"],
@@ -742,6 +790,13 @@ def cli_path(nn_search):
         raise AssertionError("static_map.pcd is empty or not finite")
     if not ate <= bound:
         raise AssertionError(f"CLI ATE {ate} m exceeds {bound} m")
+    if abs(len(frames) - JAX_CLI_KEYFRAMES) > CLI_KEYFRAME_TOL:
+        raise AssertionError(f"CLI made {len(frames)} keyframes, the JAX "
+                             f"package {JAX_CLI_KEYFRAMES}")
+    if (abs(len(static) - JAX_CLI_STATIC_VOXELS)
+            > CLI_STATIC_VOXEL_TOL * JAX_CLI_STATIC_VOXELS):
+        raise AssertionError(f"CLI static map holds {len(static)} voxels, "
+                             f"the JAX package's {JAX_CLI_STATIC_VOXELS}")
     return mb, res
 
 
@@ -817,6 +872,7 @@ def backend_path(nn_search) -> dict:
     default widths, the front end ``BACKEND_PATH`` names."""
     from staticmapping_torch import __main__ as cli
     from staticmapping_torch.backend.loop_detector import LoopDetector
+    from staticmapping_torch.backend.pose_graph import PoseGraph
     from staticmapping_torch.common import prof
     from staticmapping_torch.io import kitti
     from staticmapping_torch.registration import icp_fast
@@ -846,13 +902,24 @@ def backend_path(nn_search) -> dict:
             return close_loops(self, pairs)
         finally:
             verifier["batched"] += nn_search.launches["batched"] - before
+    # the inputs of the last pose-graph solve, solved again after the run
+    optimize = PoseGraph.optimize
+    final = {}
+
+    def recorded(self, poses_np, num_iters=8, **kw):
+        final.update(graph=self, poses=np.array(poses_np),
+                     num_iters=num_iters,
+                     special=[np.array(v) for v in self.special_values])
+        return optimize(self, poses_np, num_iters=num_iters, **kw)
     LoopDetector._close_loops = counted
+    PoseGraph.optimize = recorded
     t0 = time.perf_counter()
     try:
         mb = cli.run(args)
         torch.cuda.synchronize()
     finally:
         LoopDetector._close_loops = close_loops
+        PoseGraph.optimize = optimize
     total = time.perf_counter() - t0
     prof.disable()
     launches = dict(nn_search.launches)
@@ -894,8 +961,13 @@ def backend_path(nn_search) -> dict:
                           "avg_ms": 1e3 * v["avg"]}
                       for k, v in stages.items()},
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "final_solve": final_solve_twice(final),
     }
     emit(res)
+    for solver, rep in res["final_solve"]["solvers"].items():
+        if not rep["equal"]:
+            raise AssertionError(f"the final {solver} solve gave other "
+                                 f"bits on its second run: {rep}")
     if be.loop_edge_count <= 0:
         raise AssertionError("the back-end path closed no loop")
     if verifier["batched"] <= 0:
@@ -909,6 +981,39 @@ def backend_path(nn_search) -> dict:
     if not ate <= bound:
         raise AssertionError(f"back-end ATE {ate} m exceeds {bound} m")
     return res
+
+
+def final_solve_twice(final: dict) -> dict:
+    """The back-end path's last pose-graph solve again from its recorded
+    inputs, twice with the dense and twice with the PCG solver: each
+    pair's poses, χ² and trace compared bit for bit, each solve timed."""
+    from staticmapping_torch.backend.pose_graph import gauss_newton
+    from staticmapping_torch.backend.pose_graph_sparse import (
+        gauss_newton_pcg)
+    g = final["graph"]
+    special, g.special_values = g.special_values, final["special"]
+    try:
+        args, ncap, _ = g.solver_args(final["poses"])
+    finally:
+        g.special_values = special
+    out = {"nodes": g.num_nodes, "padded_nodes": ncap,
+           "factors": len(g.factors), "num_iters": final["num_iters"],
+           "path_solver": ("dense" if ncap <= g.DENSE_NODE_LIMIT
+                           else "pcg"), "solvers": {}}
+    for name, fn in (("dense", gauss_newton), ("pcg", gauss_newton_pcg)):
+        runs, secs = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(fn(*args, num_iters=final["num_iters"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        (pa, ca, _), (pb, cb, _) = runs
+        out["solvers"][name] = {
+            "equal": all(torch.equal(x, y) for x, y in zip(*runs)),
+            "max_pose_gap": float((pa - pb).abs().max()),
+            "chi2": [float(ca), float(cb)], "seconds": secs}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1841,15 +1946,21 @@ def multidevice_path(nn_search, device=DEV, inputs=None) -> dict:
     ref = {}
     (Ts, scores), _ = _md_timed(device, lambda: align_pairs(
         *batch, **inputs["align"]))
-    _, ref["align_s"] = _md_timed(device, lambda: align_pairs(
+    align_again, ref["align_s"] = _md_timed(device, lambda: align_pairs(
         *batch, **inputs["align"]))
-    (poses, chi2, _), _ = _md_timed(device, lambda: gauss_newton_pcg(
+    solved = _md_timed(device, lambda: gauss_newton_pcg(
+        *args, num_iters=MD_GN_TRIPS))[0]
+    solve_again, ref["solve_s"] = _md_timed(device, lambda: gauss_newton_pcg(
         *args, num_iters=MD_GN_TRIPS))
-    _, ref["solve_s"] = _md_timed(device, lambda: gauss_newton_pcg(
-        *args, num_iters=MD_GN_TRIPS))
+    poses, chi2, _ = solved
+    # one process repeats its results bit for bit (ordered sums)
+    repeat = {"align": all(torch.equal(x, y) for x, y in
+                           zip((Ts, scores), align_again)),
+              "solve": all(torch.equal(x, y) for x, y in
+                           zip(solved, solve_again))}
     ref.update(Ts=Ts.cpu().numpy(), scores=scores.cpu().numpy(),
                poses=poses.cpu().numpy(), chi2=float(chi2))
-    del batch, args
+    del batch, args, align_again, solved, solve_again
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
@@ -1907,7 +2018,8 @@ def multidevice_path(nn_search, device=DEV, inputs=None) -> dict:
            "align": inputs["align"], "nodes": inputs["nodes"],
            "gn_trips": MD_GN_TRIPS,
            "single_process": {"align_s": ref["align_s"],
-                              "solve_s": ref["solve_s"], "chi2": ref["chi2"]},
+                              "solve_s": ref["solve_s"], "chi2": ref["chi2"],
+                              "repeats_bit_for_bit": repeat},
            "gloo_ranks": [{"rank": r["rank"], "device": r["device"],
                            "k2_vs_plain": r["k2_vs_plain"], **summary(r)}
                           for r in ranks],
@@ -1918,6 +2030,9 @@ def multidevice_path(nn_search, device=DEV, inputs=None) -> dict:
                         for k in NN_KERNELS},
            "seconds": time.perf_counter() - t_phase}
     emit(res)
+    if not all(repeat.values()):
+        raise AssertionError(f"multidevice: one process's second run "
+                             f"differs from its first: {repeat}")
     for r in ranks:
         _md_check(f"rank {r['rank']}", _md_gaps(r, ref))
         for key in ("Ts", "scores", "poses"):
@@ -1962,6 +2077,7 @@ def main() -> int:
     timing = kernel_vs_plain(nn_search)
     backend_kernel_times(nn_search)
     plan_sweep(nn_search)
+    random_bits()
     res = main_path(nn_search)
     vtiming = variant_kernels(nn_search, nn_variants)
     variant_plan_sweep(nn_search, nn_variants)

@@ -9,13 +9,17 @@ measures that reference: it writes the same .bin sequence
 with the same arguments, and prints one JSON line with the ATE (keyframes of
 ``path.csv`` matched to the ground truth by stamp), the keyframe and submap
 counts and the voxel count of ``static_map.pcd``.  It needs JAX, not torch.
+``--out DIR`` keeps the run's outputs (``path.csv``, ``kitti_pose.txt``,
+``static_map.pcd``) in DIR, where ``scripts/torch_cli_ate.py --jax-out DIR``
+reads the keyframes to compare the port's with.
 
-    python3 scripts/jax_cli_ate.py
+    python3 scripts/jax_cli_ate.py [--out DIR]
 
 It took about 7 minutes and 3 GiB on an 8-core CPU.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -27,6 +31,11 @@ sys.path.insert(0, ROOT)
 
 
 def main() -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--out", default=None, metavar="DIR",
+                   help="keep the CLI's outputs here (default: a new "
+                        "temporary directory)")
+    args = p.parse_args()
     import jax
     if jax.config.jax_platforms != "cpu":
         jax.config.update("jax_platforms", "cpu")
@@ -41,7 +50,8 @@ def main() -> None:
 
     scans, gt = cli_sequence(synthetic.make_sequence)
     work = tempfile.mkdtemp(prefix="jax_cli_")
-    velodyne, out = os.path.join(work, "velodyne"), os.path.join(work, "out")
+    velodyne = os.path.join(work, "velodyne")
+    out = args.out or os.path.join(work, "out")
     write_kitti_bins(velodyne, scans)
     t0 = time.perf_counter()
     rc = cli_main(["--cfg", os.path.join(ROOT, CLI_PATH["cfg"]),
@@ -58,7 +68,7 @@ def main() -> None:
         "submaps": len(kitti.read_poses(os.path.join(out, "kitti_pose.txt"))),
         "static_voxels": len(pcd.read_pcd(os.path.join(out,
                                                        "static_map.pcd"))),
-        "seed": MAIN_PATH["seed"], "seconds": seconds}))
+        "seed": MAIN_PATH["seed"], "seconds": seconds, "out": out}))
 
 
 if __name__ == "__main__":

@@ -26,8 +26,9 @@ factors linearize by forward-mode autodiff of the residual at ξ = 0
 
 The dense solver keeps every Levenberg–Marquardt trip on the device: the
 accept/reject on the true cost is a ``torch.where``, and nothing is read on
-the host until the solve ends.  Its H/b scatter-adds sum in an unspecified
-order on CUDA, so two runs agree to f32 rounding, not bit for bit.
+the host until the solve ends.  H and b are summed in factor order, the
+order of the JAX package's ``.at[].add`` (:class:`_OrderedSum`), so a
+solve gives the same bits from run to run on every device.
 """
 from __future__ import annotations
 
@@ -303,23 +304,23 @@ def _lin_prior(T, Tp, w6, valid):
 
 def _lin_aux(poses, gi, g_enu, g_ptg, g_inv_s, g_use_err, gmask,
              gps_coord_idx, gps_calib_idx, oi, o_T, o_inv_s, omask,
-             odom_calib_idx, huber_k, pi, p_T, p_inv_s, pmask, keys):
-    """``[(key, (H, b))]`` of the GPS, odom and prior factors, each paired
-    with its entry of ``keys``; a type with no rows is left out."""
+             odom_calib_idx, huber_k, pi, p_T, p_inv_s, pmask):
+    """``[(H, b)]`` of the GPS, odom and prior factors, in that order; a
+    type with no rows is left out."""
     G, O = gi.shape[0], oi.shape[0]
     out = []
     if G:
-        out.append((keys[0], _lin_gps(
+        out.append(_lin_gps(
             poses[gi], poses[gps_coord_idx].expand(G, 4, 4),
             poses[gps_calib_idx].expand(G, 4, 4), g_ptg, g_enu, g_use_err,
-            g_inv_s, gmask.to(_F32)[:, None])))
+            g_inv_s, gmask.to(_F32)[:, None]))
     if O:
-        out.append((keys[1], _lin_odom(
+        out.append(_lin_odom(
             poses[oi], poses[odom_calib_idx].expand(O, 4, 4), o_T, o_inv_s,
-            omask.to(_F32)[:, None], huber_k)))
+            omask.to(_F32)[:, None], huber_k))
     if pi.shape[0]:
-        out.append((keys[2], _lin_prior(poses[pi], p_T, p_inv_s,
-                                        pmask.to(_F32)[:, None])))
+        out.append(_lin_prior(poses[pi], p_T, p_inv_s,
+                              pmask.to(_F32)[:, None]))
     return out
 
 
@@ -386,11 +387,37 @@ def _lm_update(poses, cand, lam, total_cost):
 # the dense solver (small graphs — one linear solve a trip)
 # --------------------------------------------------------------------------
 
-def _scatter_add_2d(H: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
-                    blocks: torch.Tensor) -> None:
-    """``H[rows[f, a], cols[f, b]] += blocks[f, a, b]`` for every factor."""
-    flat = rows[:, :, None] * H.shape[1] + cols[:, None, :]
-    H.view(-1).index_add_(0, flat.reshape(-1), blocks.reshape(-1))
+class _OrderedSum:
+    """``out[idx[k]] += vals[k]`` over every k into a zero ``[size, ...]``,
+    each slot summed from 0 in the order of k: the JAX package's sequence
+    of ``.at[].add`` scatters, one after another, when their index and
+    value arrays are concatenated in that sequence.
+
+    The order is fixed once from ``idx`` (a stable sort, and each slot's
+    segment of it; the factor indices do not change within a solve), and
+    every call sums in it with ``segment_reduce``, which walks each
+    (segment, column) of a 2-D input in one thread on the GPU, so the
+    GPU's sums are the CPU's bit for bit, and writes each slot once, an
+    empty segment as 0.  ``index_add_`` adds with atomics on the GPU, in
+    an order that changes from run to run."""
+
+    def __init__(self, idx: torch.Tensor, size: int):
+        sidx, self.order = torch.sort(idx.reshape(-1), stable=True)
+        self.offsets = torch.searchsorted(
+            sidx, torch.arange(size + 1, device=sidx.device))
+
+    def __call__(self, vals: torch.Tensor) -> torch.Tensor:
+        """``vals [K, ...]`` (K = ``idx.numel()``) → ``[size, ...]``."""
+        v = (vals.flatten(1) if vals.dim() > 1 else vals[:, None])[self.order]
+        out = torch.segment_reduce(v, "sum", offsets=self.offsets, axis=0,
+                                   unsafe=True)
+        return out.reshape(out.shape[:1] + vals.shape[1:])
+
+
+def _block_index(rows: torch.Tensor, cols: torch.Tensor,
+                 width: int) -> torch.Tensor:
+    """Flat index of ``H[rows[f, a], cols[f, b]]`` in a ``[., width]`` H."""
+    return rows[:, :, None] * width + cols[:, None, :]
 
 
 def gauss_newton(poses, node_mask,
@@ -431,29 +458,33 @@ def gauss_newton(poses, node_mask,
     diag0[:6] += gauge_weight
     diag0 = diag0 + torch.repeat_interleave((~node_mask).to(_F32), 6)
 
+    # every H and b entry of every factor type, in the JAX package's
+    # order of scatters: between (ii, ij, ji, jj), GPS, odom, prior
+    aux_idx = [idx for idx in (gidx, oidx, pidx) if idx.shape[0]]
+    sum_H = _OrderedSum(torch.cat(
+        [_block_index(a, c, n6).reshape(-1)
+         for a, c in ((ri, ri), (ri, rj), (rj, ri), (rj, rj))]
+        + [_block_index(idx, idx, n6).reshape(-1) for idx in aux_idx]),
+        n6 * n6)
+    sum_b = _OrderedSum(torch.cat(
+        [ri.reshape(-1), rj.reshape(-1)]
+        + [idx.reshape(-1) for idx in aux_idx]), n6)
+
     lam = torch.full((), 1e-4, dtype=_F32, device=dev)
     trace = []
     for _ in range(num_iters):
-        H = torch.zeros((n6, n6), dtype=_F32, device=dev)
-        b = torch.zeros((n6,), dtype=_F32, device=dev)
-
         H_ii, H_ij, H_jj, b_i, b_j = _lin_between(
             poses[fi], poses[fj], T_meas, inv_sigmas,
             fmask.to(_F32)[:, None])
-        _scatter_add_2d(H, ri, ri, H_ii)
-        _scatter_add_2d(H, ri, rj, H_ij)
-        _scatter_add_2d(H, rj, ri, H_ij.mT)
-        _scatter_add_2d(H, rj, rj, H_jj)
-        b.index_add_(0, ri.reshape(-1), b_i.reshape(-1))
-        b.index_add_(0, rj.reshape(-1), b_j.reshape(-1))
-
-        for idx, (Hk, bk) in _lin_aux(
-                poses, gi, g_enu, g_ptg, g_inv_s, g_use_err, gmask,
-                gps_coord_idx, gps_calib_idx, oi, o_T, o_inv_s, omask,
-                odom_calib_idx, huber_k, pi, p_T, p_inv_s, pmask,
-                (gidx, oidx, pidx)):
-            _scatter_add_2d(H, idx, idx, Hk)
-            b.index_add_(0, idx.reshape(-1), bk.reshape(-1))
+        aux = _lin_aux(
+            poses, gi, g_enu, g_ptg, g_inv_s, g_use_err, gmask,
+            gps_coord_idx, gps_calib_idx, oi, o_T, o_inv_s, omask,
+            odom_calib_idx, huber_k, pi, p_T, p_inv_s, pmask)
+        H = sum_H(torch.cat(
+            [B.reshape(-1) for B in (H_ii, H_ij, H_ij.mT, H_jj)]
+            + [Hk.reshape(-1) for Hk, _ in aux])).reshape(n6, n6)
+        b = sum_b(torch.cat([b_i.reshape(-1), b_j.reshape(-1)]
+                            + [bk.reshape(-1) for _, bk in aux]))
 
         H.diagonal().add_(diag0)
         # Levenberg-Marquardt: multiplicative damping bounds the step along

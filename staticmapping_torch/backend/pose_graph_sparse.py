@@ -9,7 +9,7 @@ without ever building H:
   12×12 (odom) and 6×6 (prior) blocks, one batched pass per factor type;
 * ``H dx = −b`` is solved by conjugate gradients with ``H·v`` computed
   matrix-free: gather the per-factor slices of ``v``, multiply by the
-  cached blocks, scatter-add;
+  cached blocks, sum them into their nodes;
 * the preconditioner is block-Jacobi — the ``[n, 6, 6]`` diagonal blocks of
   H (LM damping and the gauge prior included), inverted once per GN trip;
 * the Levenberg–Marquardt accept/reject on the true cost is the dense
@@ -20,12 +20,19 @@ Here a system that meets the test (or the trip cap) freezes its state, and
 the host reads the flag only between blocks of ``_CG_CHECK_EVERY`` trips:
 the result is the one a check every trip gives, with a tenth of the syncs.
 
+Every sum into the nodes (the gradient, the block diagonal, each matvec)
+runs in factor order, the order of the JAX package's ``.at[].add``
+(``pose_graph._OrderedSum``), the between factors' and the other types'
+apart, as there: a solve gives the same bits from run to run on every
+device.
+
 Distribution: :func:`solve_sharded` gives each rank of a mesh
 (``parallel/multihost.py``) a contiguous shard of the between factors.
 Every rank linearizes its shard, and the partial sums of the cost, the
 gradient, the block diagonal, every matvec and the final χ² are summed
 over the mesh (``all_reduce``, the JAX package's ``psum``); the PCG state
-stays replicated.  The small factor types (GPS, odom, prior) are
+stays replicated.  Each rank orders its partial sums before the
+``all_reduce``.  The small factor types (GPS, odom, prior) are
 replicated and scaled by 1/D before the sum, as in the JAX package, so it
 counts them once.  Both host decisions, the CG's "still running" and the
 LM accept, come from summed values, so every rank takes the same branch.
@@ -37,7 +44,7 @@ import torch
 from ..common import se3
 from ..parallel.multihost import all_reduce, check_mesh
 from .pose_graph import (_between_cost, _F32, _lin_aux, _lin_between,
-                         _lm_update, _make_total_cost)
+                         _lm_update, _make_total_cost, _OrderedSum)
 
 # CG trips between host reads of the "still running" flag
 _CG_CHECK_EVERY = 25
@@ -46,14 +53,6 @@ _CG_CHECK_EVERY = 25
 def _bmv(B: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Batched block · vector: [F,a,b] · [F,b] → [F,a]."""
     return (B @ v[..., None])[..., 0]
-
-
-def _add_rows(out: torch.Tensor, idx, vals: torch.Tensor) -> torch.Tensor:
-    """``out[idx[f]] += vals[f]``; an int ``idx`` takes the sum over f."""
-    if isinstance(idx, int):
-        out[idx:idx + 1] += vals.sum(0, keepdim=True)
-        return out
-    return out.index_add_(0, idx, vals)
 
 
 def _pcg_core(poses, node_mask,
@@ -87,16 +86,36 @@ def _pcg_core(poses, node_mask,
                 (c_btw + (total_local(p) - c_btw) * inv_d).reshape(1),
                 mesh)[0]
 
-    def small(t):
-        """The accumulator of the replicated factors' share of ``t``."""
-        return t if mesh is None else torch.zeros_like(t)
-
     def combine(t, t_small):
         """The mesh's sum of the between share ``t`` and the replicated
-        share ``t_small`` (one copy of it)."""
-        if mesh is None:
-            return t
-        return all_reduce(t + t_small * inv_d, mesh)
+        share ``t_small`` (one copy of it; None without such factors)."""
+        if t_small is not None:
+            t = t + (t_small if mesh is None else t_small * inv_d)
+        return t if mesh is None else all_reduce(t, mesh)
+
+    # the node each row of each auxiliary type adds to, in the JAX
+    # package's order of scatters; a special node's int index stands for
+    # every factor of its type
+    specs = [spec for spec, f in zip(
+        ([(gi, slice(0, 6)), (gps_coord_idx, slice(6, 12)),
+          (gps_calib_idx, slice(12, 18))],
+         [(oi, slice(0, 6)), (odom_calib_idx, slice(6, 12))],
+         [(pi, slice(0, 6))]),
+        (gi.shape[0], oi.shape[0], pi.shape[0])) if f]
+    sum_btw = _OrderedSum(torch.cat([fi, fj]), n)
+    sum_aux = _OrderedSum(torch.cat(
+        [torch.as_tensor(idx, device=dev).expand(spec[0][0].shape[0])
+         for spec in specs for idx, _ in spec]), n) if specs else None
+
+    def aux_sum(per_type, cut):
+        """The ordered sum into the nodes of each auxiliary type's rows
+        (``per_type``, one tensor a type, ``cut`` to each node's slice),
+        or None without such factors."""
+        if not specs:
+            return None
+        return sum_aux(torch.cat([cut(t, sl) for t, spec in
+                                  zip(per_type, specs) for _, sl in spec]))
+
     eye6 = torch.eye(6, dtype=_F32, device=dev)
     base = torch.full((n, 6), damping, dtype=_F32, device=dev)
     base[0] += gauge_weight
@@ -109,30 +128,17 @@ def _pcg_core(poses, node_mask,
         H_ii, H_ij, H_jj, b_i, b_j = _lin_between(
             poses[fi], poses[fj], T_meas, inv_sigmas,
             fmask.to(_F32)[:, None])
-        # (block row, slice of the factor's tangent) of each auxiliary
-        # type; an int row is a special node shared by the type's factors
         aux = _lin_aux(
             poses, gi, g_enu, g_ptg, g_inv_s, g_use_err, gmask,
             gps_coord_idx, gps_calib_idx, oi, o_T, o_inv_s, omask,
-            odom_calib_idx, huber_k, pi, p_T, p_inv_s, pmask,
-            ([(gi, slice(0, 6)), (gps_coord_idx, slice(6, 12)),
-              (gps_calib_idx, slice(12, 18))],
-             [(oi, slice(0, 6)), (odom_calib_idx, slice(6, 12))],
-             [(pi, slice(0, 6))]))
+            odom_calib_idx, huber_k, pi, p_T, p_inv_s, pmask)
 
         # ---- gradient b [n, 6] and block diagonal D [n, 6, 6] ----
-        b = torch.zeros((n, 6), dtype=_F32, device=dev)
-        D = torch.zeros((n, 6, 6), dtype=_F32, device=dev)
-        _add_rows(b, fi, b_i)
-        _add_rows(b, fj, b_j)
-        _add_rows(D, fi, H_ii)
-        _add_rows(D, fj, H_jj)
-        b_s, D_s = small(b), small(D)
-        for spec, (Hk, bk) in aux:
-            for idx, sl in spec:
-                _add_rows(b_s, idx, bk[:, sl])
-                _add_rows(D_s, idx, Hk[:, sl, sl])
-        b, D = combine(b, b_s), combine(D, D_s)
+        b = combine(sum_btw(torch.cat([b_i, b_j])),
+                    aux_sum([bk for _, bk in aux], lambda t, sl: t[:, sl]))
+        D = combine(sum_btw(torch.cat([H_ii, H_jj])),
+                    aux_sum([Hk for Hk, _ in aux],
+                            lambda t, sl: t[:, sl, sl]))
 
         # ---- scalar diagonal: damping, gauge, inactive nodes, LM ----
         diag_h = torch.diagonal(D, dim1=1, dim2=2)
@@ -145,17 +151,14 @@ def _pcg_core(poses, node_mask,
         def matvec(v):
             """H·v [n, 6], matrix-free."""
             vi, vj = v[fi], v[fj]
-            u = torch.zeros((n, 6), dtype=_F32, device=dev)
-            u.index_add_(0, fi, _bmv(H_ii, vi) + _bmv(H_ij, vj))
-            u.index_add_(0, fj, _bmv(H_ji, vi) + _bmv(H_jj, vj))
-            u_s = small(u)
-            for spec, (Hk, _) in aux:
-                f = Hk.shape[0]
-                uk = _bmv(Hk, torch.cat([v[idx].expand(f, 6)
-                                         for idx, _ in spec], dim=1))
-                for idx, sl in spec:
-                    _add_rows(u_s, idx, uk[:, sl])
-            return combine(u, u_s) + extra * v
+            u = sum_btw(torch.cat([_bmv(H_ii, vi) + _bmv(H_ij, vj),
+                                   _bmv(H_ji, vi) + _bmv(H_jj, vj)]))
+            u_aux = aux_sum(
+                [_bmv(Hk, torch.cat([v[idx].expand(Hk.shape[0], 6)
+                                     for idx, _ in spec], dim=1))
+                 for spec, (Hk, _) in zip(specs, aux)],
+                lambda t, sl: t[:, sl])
+            return combine(u, u_aux) + extra * v
 
         # ---- PCG on H dx = −b, frozen once converged ----
         rhs = -b

@@ -88,6 +88,11 @@ class Frame:
     global_pose: np.ndarray           # [4, 4] f64
     local_pose: np.ndarray = None     # pose within its submap
     match_score: float = 1.0
+    descriptor: Optional[np.ndarray] = None   # M2DP, filled by the back end
+
+    def transform_cloud_to_global(self) -> PointCloud:
+        return self.cloud.transform(torch.as_tensor(
+            self.global_pose, dtype=torch.float32, device=self.cloud.device))
 
 
 @dataclasses.dataclass

@@ -26,6 +26,11 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True).clamp_min(_EPS)
 
 
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
+                            device=q.device)
+
+
 def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product, batched over leading dims."""
     w1, x1, y1, z1 = q1.unbind(-1)
@@ -215,9 +220,17 @@ def matrix_to_euler(R: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, z], dim=-1)
 
 
+def quat_to_euler(q: torch.Tensor) -> torch.Tensor:
+    return matrix_to_euler(quat_to_matrix(q))
+
+
 # ---------------------------------------------------------------------------
 # rigid transforms [..., 4, 4]
 # ---------------------------------------------------------------------------
+
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
 
 def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Built by concatenation, not by writing into a buffer, so that
@@ -243,10 +256,35 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
     return from_rt(Rt, -(Rt @ translation(T)[..., None])[..., 0])
 
 
+def compose(*Ts: torch.Tensor) -> torch.Tensor:
+    out = Ts[0]
+    for T in Ts[1:]:
+        out = out @ T
+    return out
+
+
 def apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply ``[..., 4, 4]`` to points ``[..., N, 3]``."""
     return (pts @ rotation(T).transpose(-1, -2)
             + translation(T)[..., None, :])
+
+
+def transform_to_vector6(T: torch.Tensor) -> torch.Tensor:
+    """``[tx, ty, tz, roll, pitch, yaw]`` (math.h:157-166)."""
+    return torch.cat([translation(T), matrix_to_euler(rotation(T))], dim=-1)
+
+
+def vector6_to_transform(v: torch.Tensor) -> torch.Tensor:
+    return from_rt(euler_to_matrix(v[..., 3:]), v[..., :3])
+
+
+def interpolate(T1: torch.Tensor, T2: torch.Tensor, factor) -> torch.Tensor:
+    """slerp rotation + lerp translation (common/math.h:198-211)."""
+    factor = torch.as_tensor(factor, dtype=T1.dtype, device=T1.device)
+    f = factor[..., None] if factor.ndim else factor
+    q = slerp(matrix_to_quat(rotation(T1)), matrix_to_quat(rotation(T2)), f)
+    t = translation(T1) + (translation(T2) - translation(T1)) * f
+    return from_rt(quat_to_matrix(q), t)
 
 
 def _sign_aligned_quats(Ts: torch.Tensor) -> torch.Tensor:

@@ -90,6 +90,18 @@ class PointCloud:
         new_xyz = se3.quat_rotate(q_per_point, self.xyz) + t_per_point
         return dataclasses.replace(self, xyz=new_xyz)
 
+    def masked_xyz(self, fill: float = PAD_COORD) -> torch.Tensor:
+        """xyz with padded points moved to ``fill`` (so reductions/NN ignore
+        them without extra masking)."""
+        return torch.where(self.mask[..., None], self.xyz,
+                           torch.full_like(self.xyz, fill))
+
+    def centroid(self) -> torch.Tensor:
+        n = torch.clamp_min(self.num_valid(), 1)
+        s = torch.sum(torch.where(self.mask[..., None], self.xyz, 0.0),
+                      dim=-2)
+        return s / n[..., None]
+
     def compact(self) -> "PointCloud":
         """Stable-sort valid points to the front (keeps relative order, so
         the per-point ``factor`` time ordering survives)."""
@@ -164,6 +176,18 @@ def to_numpy(cloud: PointCloud) -> np.ndarray:
     return np.concatenate([xyz, inten[:, None]], axis=1)
 
 
+def empty(capacity: int, device=None) -> PointCloud:
+    """A cloud of ``capacity`` padded slots on ``device`` (the GPU unless
+    named)."""
+    dev = resolve_device(device)
+    return PointCloud(
+        xyz=torch.full((capacity, 3), PAD_COORD, dtype=torch.float32,
+                       device=dev),
+        intensity=torch.zeros((capacity,), dtype=torch.float32, device=dev),
+        factor=torch.zeros((capacity,), dtype=torch.float32, device=dev),
+        mask=torch.zeros((capacity,), dtype=torch.bool, device=dev))
+
+
 def concat(a: PointCloud, b: PointCloud,
            capacity: Optional[int] = None) -> PointCloud:
     """Concatenate along the point axis (then compact into ``capacity``)."""
@@ -193,6 +217,15 @@ class NormalCloud:
 
     def num_valid(self) -> torch.Tensor:
         return torch.sum(self.mask, dim=-1)
+
+    def transform(self, T: torch.Tensor) -> "NormalCloud":
+        return dataclasses.replace(
+            self, xyz=se3.apply(T, self.xyz),
+            normals=self.normals @ se3.rotation(T).transpose(-1, -2))
+
+    def masked_xyz(self, fill: float = PAD_COORD) -> torch.Tensor:
+        return torch.where(self.mask[..., None], self.xyz,
+                           torch.full_like(self.xyz, fill))
 
     def __getitem__(self, b) -> "NormalCloud":
         return NormalCloud(xyz=self.xyz[b], normals=self.normals[b],

@@ -16,6 +16,7 @@ from typing import ClassVar, Dict, Tuple
 
 import torch
 
+from ..common import random
 from ..data.cloud import PointCloud
 from ..ops import nn_search, voxel as voxel_ops
 
@@ -106,9 +107,10 @@ class BoundingBoxRemovalFilter(Filter):
 @dataclasses.dataclass
 class RandomSamplerFilter(Filter):
     """Keep each point with probability sampling_rate
-    (pre_processors/filter_random_sample.h:53).  Deterministic per seed: a
-    ``torch.Generator`` seeded with ``seed`` on the cloud's device draws
-    the uniforms (other bits than the JAX package's ``jax.random``)."""
+    (pre_processors/filter_random_sample.h:53).  Deterministic per seed:
+    the uniforms are the JAX package's ``jax.random.uniform(
+    jax.random.key(seed), mask.shape)`` bit for bit (``common/random.py``),
+    so the same points go."""
 
     sampling_rate: float = 1.0
     seed: int = 0
@@ -120,10 +122,8 @@ class RandomSamplerFilter(Filter):
         return 0.0 < self.sampling_rate <= 1.0
 
     def __call__(self, cloud: PointCloud) -> PointCloud:
-        gen = torch.Generator(device=cloud.mask.device)
-        gen.manual_seed(self.seed)
-        u = torch.rand(cloud.mask.shape, generator=gen,
-                       device=cloud.mask.device)
+        u = random.uniform(self.seed, cloud.mask.shape,
+                           cloud.mask.device)
         return cloud.with_mask(u < self.sampling_rate)
 
 

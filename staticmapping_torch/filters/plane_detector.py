@@ -13,8 +13,8 @@ random_sample_with_plane_detect.h:43-110):
     batched ``torch.linalg.eigh`` over all voxels;
   * the sampler keeps plane points and samples the rest at
     ``sampling_rate`` (random_sample_with_plane_detect.h:80-105), its
-    uniforms from a ``torch.Generator`` seeded with ``seed`` on the cloud's
-    device (other bits than the JAX package's ``jax.random``).
+    uniforms the JAX package's ``jax.random.uniform(jax.random.key(seed),
+    mask.shape)`` bit for bit (``common/random.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from typing import ClassVar, Dict, Tuple
 
 import torch
 
+from ..common import random
 from ..data.cloud import PointCloud
 from ..ops.voxel import _segment_max, _segment_sum, _sort_by_voxel
 from .filters import Filter
@@ -128,8 +129,6 @@ class RandomSampleWithPlaneDetectFilter(Filter):
             min_point_num_in_voxel=self.min_point_num_in_voxel,
             distance_threshold=self.ground_height_threshold)
         plane = det.plane_mask(cloud)
-        gen = torch.Generator(device=cloud.mask.device)
-        gen.manual_seed(self.seed)
-        u = torch.rand(cloud.mask.shape, generator=gen,
-                       device=cloud.mask.device)
+        u = random.uniform(self.seed, cloud.mask.shape,
+                           cloud.mask.device)
         return cloud.with_mask(plane | (u < self.sampling_rate))

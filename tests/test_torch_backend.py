@@ -396,6 +396,34 @@ def test_pcg_past_the_dense_limit_matches_jax():
     assert abs(g.last_chi2 - jg.last_chi2) <= 1e-3 * max(jg.last_chi2, 1.0)
 
 
+@pytest.mark.parametrize("trail", [(), (6,), (6, 6)], ids=str)
+def test_ordered_sum_is_the_jax_scatter_order(trail):
+    """The solvers' sums into H, b and the nodes: two JAX ``.at[].add``
+    scatters one after the other, with repeated indices and values of
+    mixed magnitude, equal the port's one ordered sum over both bit for
+    bit; a slot nothing adds to stays 0."""
+    rng = np.random.default_rng(9)
+    n = 40
+    idx = [rng.integers(0, n - 3, 300), rng.integers(0, n - 3, 200)]
+    vals = [(rng.normal(size=(len(i),) + trail)
+             * 10.0 ** rng.uniform(-3, 3, (len(i),) + (1,) * len(trail))
+             ).astype(np.float32) for i in idx]
+
+    @jax.jit
+    def scatter(i1, v1, i2, v2):
+        return jnp.zeros((n,) + trail, jnp.float32).at[i1].add(v1).at[
+            i2].add(v2)
+    want = np.asarray(scatter(idx[0], vals[0], idx[1], vals[1]))
+    got = tpg._OrderedSum(torch.from_numpy(np.concatenate(idx)), n)(
+        torch.from_numpy(np.concatenate(vals))).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert not got[n - 3:].any()
+    empty = tpg._OrderedSum(torch.zeros(0, dtype=torch.int64), n)(
+        torch.zeros((0,) + trail))
+    assert tuple(empty.shape) == (n,) + trail and not empty.any()
+
+
 def test_sharded_solve_is_refused():
     """The sharded PCG solve takes only the port's mesh (a JAX mesh or any
     other object is refused); tests/test_torch_multidevice.py runs it."""

@@ -589,8 +589,8 @@ def _circle_graph(device, n=24, drift=0.05, seed=31):
 @pytest.mark.parametrize("solver", ["dense", "pcg"])
 def test_pose_graph_solve_on_the_gpu_matches_the_cpu(cuda_device, solver):
     """Three trips, before the f32 noise floor: poses within 1e-4 m and
-    the χ² within 1e-3 relative (the GPU's scatter-adds sum in another
-    order)."""
+    the χ² within 1e-3 relative (the sums run in the CPU's order, but the
+    card's matrix products and linear solves round otherwise)."""
     g_g, odom = _circle_graph(cuda_device)
     g_c, _ = _circle_graph("cpu")
     out_g = g_g.optimize(odom, num_iters=3, solver=solver)
@@ -599,6 +599,51 @@ def test_pose_graph_solve_on_the_gpu_matches_the_cpu(cuda_device, solver):
     assert np.abs(out_g[:, :3, :3] - out_c[:, :3, :3]).max() <= 1e-4
     assert abs(g_g.last_chi2 - g_c.last_chi2) <= 1e-3 * max(g_c.last_chi2,
                                                             1.0)
+
+
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_pose_graph_solve_on_the_gpu_is_the_same_every_run(cuda_device,
+                                                           solver):
+    """The solver's sums run in factor order on the card, so three solves
+    of one graph at the optimizer's 8 trips (past the f32 noise floor,
+    where the LM accept turns on rounding) give the same poses, χ² and
+    trace bit for bit."""
+    from staticmapping_torch.backend import pose_graph as pg
+    from staticmapping_torch.backend import pose_graph_sparse as pgs
+    g, odom = _circle_graph(cuda_device)
+    args, _, _ = g.solver_args(odom)
+    fn = pg.gauss_newton if solver == "dense" else pgs.gauss_newton_pcg
+    first, *rest = (fn(*args, num_iters=8) for _ in range(3))
+    assert first[0].is_cuda
+    for out in rest:
+        for a, b in zip(out, first):
+            assert torch.equal(a, b)
+
+
+def test_ordered_sum_on_the_gpu_equals_the_cpu(cuda_device):
+    """The solvers' ordered sum walks each node's terms in one thread on
+    the card, in the CPU's order: equal bit for bit."""
+    from staticmapping_torch.backend.pose_graph import _OrderedSum
+    rng = np.random.default_rng(47)
+    idx = torch.from_numpy(rng.integers(0, 4000, 50000))
+    vals = torch.from_numpy((rng.normal(size=(50000, 6, 6))
+                             * 10.0 ** rng.uniform(-3, 3, (50000, 1, 1))
+                             ).astype(np.float32))
+    want = _OrderedSum(idx, 4096)(vals)
+    got = _OrderedSum(idx.to(cuda_device), 4096)(vals.to(cuda_device))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(5,), (32768,), (2, 4096)], ids=str)
+@pytest.mark.parametrize("seed", [0, 7, 2**32 + 5, -1])
+def test_uniform_on_the_gpu_equals_the_cpu(cuda_device, seed, shape):
+    """The JAX package's uniforms drawn on the card equal the CPU's bit for
+    bit (tests/test_torch_random.py holds the CPU's to ``jax.random``)."""
+    from staticmapping_torch.common import random as trandom
+    got = trandom.uniform(seed, shape, cuda_device)
+    assert got.is_cuda and tuple(got.shape) == shape
+    want = trandom.uniform(seed, shape, "cpu")
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 def test_align_gicp_on_the_gpu_matches_the_cpu(cuda_device):

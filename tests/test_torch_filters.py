@@ -42,18 +42,20 @@ def test_deterministic_filters_match_jax(name, params):
 
 
 def test_random_sampler_keeps_its_rate_and_seed():
-    """Another RNG than jax.random draws the uniforms, so the kept set
-    differs from the JAX package's; the kept fraction and the determinism
-    per seed hold."""
+    """The port draws jax.random's bits, so it keeps exactly the JAX
+    package's points; the kept fraction and the determinism per seed
+    hold."""
     jc = _cloud(1, n=4000)
     pc = interop.point_cloud(jc, CPU)
     sampler = tfilters.create_filter("RandomSampler", {"sampling_rate": 0.5})
     a, b = sampler(pc), sampler(pc)
     np.testing.assert_array_equal(a.mask.numpy(), b.mask.numpy())
+    want = np.asarray(jfilters.create_filter(
+        "RandomSampler", {"sampling_rate": 0.5})(jc).mask)
+    np.testing.assert_array_equal(a.mask.numpy(), want)
     n_in = int(pc.mask.sum())
     kept_t = int(a.mask.sum()) / n_in
-    kept_j = int(np.asarray(jfilters.create_filter(
-        "RandomSampler", {"sampling_rate": 0.5})(jc).mask).sum()) / n_in
+    kept_j = int(want.sum()) / n_in
     # three binomial standard deviations at n = 4000, p = 0.5
     assert abs(kept_t - 0.5) < 3 * np.sqrt(0.25 / n_in)
     assert abs(kept_j - 0.5) < 3 * np.sqrt(0.25 / n_in)
@@ -145,10 +147,10 @@ def test_plane_detector_matches_jax(scan):
 
 def test_plane_sampler_keeps_planes_and_its_rate(scan):
     """RandomSamplerWithPlaneDetect keeps the plane set of both packages
-    exactly and samples the other points at its rate: another RNG draws
-    the uniforms, so the sampled points differ from the JAX package's,
-    while the kept fraction holds to three binomial standard deviations
-    and the draw is fixed by the seed."""
+    exactly and samples the other points at its rate with jax.random's
+    bits: the kept mask is the JAX package's, the kept fraction holds to
+    three binomial standard deviations and the draw is fixed by the
+    seed."""
     jc, tc = scan
     params = {"sampling_rate": 0.5, "leaf_size": 2.0,
               "min_point_num_in_voxel": 5, "ground_height_threshold": 0.5}
@@ -161,6 +163,7 @@ def test_plane_sampler_keeps_planes_and_its_rate(scan):
     np.testing.assert_array_equal(a, b)
     want = np.asarray(jfilter_pkg.create_filter(
         "RandomSamplerWithPlaneDetect", params)(jc).mask)
+    np.testing.assert_array_equal(a, want)
     valid = np.asarray(jc.mask)
     assert (a[plane]).all() and (want[plane]).all()
     rest = valid & ~plane

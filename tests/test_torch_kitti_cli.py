@@ -18,11 +18,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = os.path.join(ROOT, "config", "lidar_only_kitti.xml")
 
 
-@pytest.fixture(scope="module")
-def kitti_dir(tmp_path_factory):
+def write_sequence(d: str):
     """tests/test_kitti_cli.py's sequence: 10 scans of the synthetic world
-    in the KITTI .bin layout (N×4 f32, intensity stored 0..1)."""
-    d = tmp_path_factory.mktemp("velodyne")
+    written to ``d`` in the KITTI .bin layout (N×4 f32, intensity stored
+    0..1); returns the scans and their ground truth."""
     scans, gt = synthetic.make_sequence(
         n_scans=10, seed=11, trajectory="straight", step=1.0,
         max_points=6000, max_range=50.0)
@@ -30,9 +29,16 @@ def kitti_dir(tmp_path_factory):
         rec = np.zeros((len(pts), 4), dtype=np.float32)
         rec[:, :3] = pts[:, :3]
         rec[:, 3] = pts[:, 3] / 255.0 if pts[:, 3].max() > 1.0 else pts[:, 3]
-        rec.tofile(os.path.join(str(d), f"{i:06d}.bin"))
+        rec.tofile(os.path.join(d, f"{i:06d}.bin"))
+    return scans, gt
+
+
+@pytest.fixture(scope="module")
+def kitti_dir(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("velodyne"))
+    scans, gt = write_sequence(d)
     rel_gt = np.stack([np.linalg.solve(gt[0], g) for g in gt])
-    return str(d), scans, rel_gt
+    return d, scans, rel_gt
 
 
 def _final_pose_near_track(poses, rel_gt):
@@ -65,12 +71,14 @@ def test_cli_end_to_end(kitti_dir, tmp_path):
     assert not (out / "whole_map.pcd").exists()
 
 
-def _run_builder(lib, d, out, pipelined, **kw):
-    """The kitti config at tests/test_kitti_cli.py's small capacities,
-    without the RandomSampler (the packages draw different random bits), fed
-    the .bin files through the reader."""
+def run_builder(lib, d, out, pipelined, sampler=False, clouds=None, **kw):
+    """The kitti config at tests/test_kitti_cli.py's small capacities, fed
+    the .bin files through the reader; without the RandomSampler unless
+    ``sampler`` (tests/test_torch_random.py runs the whole chain).  Each
+    scan's filtered cloud is appended to ``clouds`` when given."""
     cfg = lib.load_config(CFG)
-    cfg.filters = [f for f in cfg.filters if f[0] != "RandomSampler"]
+    if not sampler:
+        cfg.filters = [f for f in cfg.filters if f[0] != "RandomSampler"]
     mbo = cfg.map_builder
     mbo.export_file_path = str(out)
     mbo.front_end.scan_capacity = 8192
@@ -81,6 +89,13 @@ def _run_builder(lib, d, out, pipelined, **kw):
     if pipelined:          # what the CLI's --pipelined sets
         mbo.pipelined, mbo.pipeline_chunk, mbo.pair_match_batch = True, 16, 16
     mb = lib.build_map_builder(cfg, with_backend=False, **kw)
+    if clouds is not None:
+        prepare = mb.front_end._prepare
+
+        def recording(points):
+            clouds.append(prepare(points))
+            return clouds[-1]
+        mb.front_end._prepare = recording
     for stamp, pts in tkitti.iter_scans(d):
         mb.insert_pointcloud(stamp, pts)
     mb.finish()
@@ -97,9 +112,9 @@ def test_builder_matches_jax(kitti_dir, tmp_path, pipelined):
     sequential runs' f32 poses differ by millimetres, which moves voxels
     across the 0.57 threshold."""
     d, _, rel_gt = kitti_dir
-    mb_j = _run_builder(jconfig, d, tmp_path / "jax", pipelined)
-    mb_t = _run_builder(tconfig, d, tmp_path / "torch", pipelined,
-                        device="cpu")
+    mb_j = run_builder(jconfig, d, tmp_path / "jax", pipelined)
+    mb_t = run_builder(tconfig, d, tmp_path / "torch", pipelined,
+                       device="cpu")
     assert len(mb_t.frame_poses()) == len(mb_j.frame_poses())
     rows = {k: tkitti.read_poses(str(tmp_path / k / "kitti_pose.txt"))
             for k in ("jax", "torch")}

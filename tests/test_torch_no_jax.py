@@ -20,6 +20,7 @@ def _port_sources():
              os.path.join(ROOT, "scripts", "backend_path_frames.py"),
              os.path.join(ROOT, "scripts", "nn_kernel_times.py"),
              os.path.join(ROOT, "scripts", "profile_main_path.py"),
+             os.path.join(ROOT, "scripts", "torch_cli_ate.py"),
              os.path.join(ROOT, "scripts", "torch_matcher_ate.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py"),
              os.path.join(ROOT, "tests", "torch_multidevice_worker.py")]
