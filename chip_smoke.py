@@ -33,6 +33,14 @@ compiler per source, all started together), then, one phase after another:
   loop verifier on K2, the GICP gate on K1, the pose-graph solves), checked
   against the ground truth and the JAX package's run of the same settings;
   then its final solve again, twice with each solver, held bit for bit;
+- ``sensors`` (``scripts/main_path.py::SENSOR_PATH``): the back-end
+  path's world and front end with one GPS fix and one odometry pose a scan,
+  GPS, odometry and the extrinsic calibration on and loop closing kept
+  out, through ``build_map_builder``, ``insert_gps`` / ``insert_odom`` and
+  ``finish`` (the map turned into ENU); held to the JAX package's run of
+  the same feed (ENU error, ATE, GPS coordinate transform, odometry
+  calibration, keyframes, static voxels, the raw sensor PCDs), then its
+  final solve again, twice with each solver, held bit for bit;
 - ``matchers``: the other matcher types at full width
   (``scripts/main_path.py::MATCHER_PATH``): NDT-GICP (type 3, its GICP
   stage on K1) and NDT (type 5) on the chunked front end with the back end
@@ -60,6 +68,7 @@ printing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -72,9 +81,12 @@ import numpy as np
 import torch
 
 from scripts.main_path import (BACKEND_PATH, CLI_PATH, MAIN_PATH,
-                               MATCHER_PATH, OUTPUTS_PATH, cli_sequence,
-                               configure_matcher_run, loop_gap,
-                               matcher_sequence, stamp_matched_ate,
+                               MATCHER_PATH, OUTPUTS_PATH, SENSOR_PATH,
+                               backend_sequence, cli_sequence,
+                               configure_matcher_run, drive_sensor_path,
+                               loop_gap, matcher_sequence, sensor_config,
+                               sensor_feed, sensor_results,
+                               stamp_matched_ate, transform_gap,
                                write_kitti_bins, write_matcher_cfg,
                                write_package_cfg)
 from scripts.nn_kernel_times import eager_ms as time_ms, graph_ms
@@ -120,6 +132,47 @@ JAX_FRONTEND_LOOP_GAP_M = 0.32015412172757185
 JAX_MATCHER_ATE_M = {"type3": 0.02281894651969786,
                      "type5": 5.826329594880556,
                      "type1": 0.06565525763290737}
+
+# staticmapping_tpu on SENSOR_PATH, measured on a CPU by
+# scripts/jax_sensor_ate.py (the same feed, drawn by the same code; 949 s):
+# the ENU error and aligned ATE, the GPS coordinate transform and the
+# calibrated tf_odom_lidar, the counts, and the raw sensor PCDs' size and
+# SHA-256.  The port on the card must stay within max(2 x the JAX run's ENU
+# error and ATE, SENSOR_FLOOR_M), hold each transform within
+# SENSOR_TRANSFORM_TOL (m, rad) of the JAX run's, its keyframes and static
+# voxels within CLI_KEYFRAME_TOL and CLI_STATIC_VOXEL_TOL, and write the
+# same PCD bytes (host float64 from the same messages).
+JAX_SENSOR = {
+    "enu_error_m": 0.531470502626911, "ate_m": 0.25615347358125384,
+    "gps_coord_transform": [
+        [0.6954097749945175, -0.7185937212197722, -0.005320588839119775,
+         -0.23501533269882202],
+        [0.7185684653540527, 0.6954300278048003, -0.0060363089828199094,
+         0.09693440049886703],
+        [0.00803775097872387, 0.00037450091463397993, 0.999967626630117,
+         -0.3123633563518524],
+        [0.0, 0.0, 0.0, 1.0]],
+    "tf_odom_lidar": [
+        [0.9901939103303337, 0.13458751361601462, -0.0374462431143921,
+         -0.005832774164433722],
+        [-0.13308582763851146, 0.9902941923592593, 0.040069627666036264,
+         0.007338541180986228],
+        [0.04247566864094669, -0.03469313704728119, 0.9984949693490314,
+         -0.0005131614444471887],
+        [0.0, 0.0, 0.0, 1.0]],
+    "gps_init_submap": 21, "keyframes": 92, "submaps": 46,
+    "static_voxels": 112639, "gps_factors": 44, "odom_factors": 46,
+    "pcds": {
+        "original_gps.pcd": {
+            "bytes": 1654, "sha256": "b792660f8fb7298554c74ffa2d727422"
+                                     "72594f8ca88ee56f2b889d41d04a648c"},
+        "original_odom.pcd": {
+            "bytes": 1654, "sha256": "4755188b078559799d77ee6c5a30e1aa"
+                                     "5bf6e2b1939734fdfd91b390c85e05f9"}},
+}
+SENSOR_FLOOR_M = 0.35
+SENSOR_TRANSFORM_TOL = {"gps_coord_transform": (0.1, 0.01),
+                        "tf_odom_lidar": (0.05, float(np.radians(0.5)))}
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -872,7 +925,6 @@ def backend_path(nn_search) -> dict:
     default widths, the front end ``BACKEND_PATH`` names."""
     from staticmapping_torch import __main__ as cli
     from staticmapping_torch.backend.loop_detector import LoopDetector
-    from staticmapping_torch.backend.pose_graph import PoseGraph
     from staticmapping_torch.common import prof
     from staticmapping_torch.io import kitti
     from staticmapping_torch.registration import icp_fast
@@ -902,24 +954,14 @@ def backend_path(nn_search) -> dict:
             return close_loops(self, pairs)
         finally:
             verifier["batched"] += nn_search.launches["batched"] - before
-    # the inputs of the last pose-graph solve, solved again after the run
-    optimize = PoseGraph.optimize
-    final = {}
-
-    def recorded(self, poses_np, num_iters=8, **kw):
-        final.update(graph=self, poses=np.array(poses_np),
-                     num_iters=num_iters,
-                     special=[np.array(v) for v in self.special_values])
-        return optimize(self, poses_np, num_iters=num_iters, **kw)
     LoopDetector._close_loops = counted
-    PoseGraph.optimize = recorded
     t0 = time.perf_counter()
     try:
-        mb = cli.run(args)
-        torch.cuda.synchronize()
+        with last_solve_recorded() as final:
+            mb = cli.run(args)
+            torch.cuda.synchronize()
     finally:
         LoopDetector._close_loops = close_loops
-        PoseGraph.optimize = optimize
     total = time.perf_counter() - t0
     prof.disable()
     launches = dict(nn_search.launches)
@@ -983,6 +1025,26 @@ def backend_path(nn_search) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def last_solve_recorded():
+    """Record the inputs of the last ``PoseGraph.optimize`` call made
+    inside the block, for ``final_solve_twice``."""
+    from staticmapping_torch.backend.pose_graph import PoseGraph
+    optimize = PoseGraph.optimize
+    final = {}
+
+    def recorded(self, poses_np, num_iters=8, **kw):
+        final.update(graph=self, poses=np.array(poses_np),
+                     num_iters=num_iters,
+                     special=[np.array(v) for v in self.special_values])
+        return optimize(self, poses_np, num_iters=num_iters, **kw)
+    PoseGraph.optimize = recorded
+    try:
+        yield final
+    finally:
+        PoseGraph.optimize = optimize
+
+
 def final_solve_twice(final: dict) -> dict:
     """The back-end path's last pose-graph solve again from its recorded
     inputs, twice with the dense and twice with the PCG solver: each
@@ -1014,6 +1076,99 @@ def final_solve_twice(final: dict) -> dict:
             "max_pose_gap": float((pa - pb).abs().max()),
             "chi2": [float(ca), float(cb)], "seconds": secs}
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sensor path
+# ---------------------------------------------------------------------------
+
+def sensors_path(nn_search) -> dict:
+    """SENSOR_PATH on the GPU through the port's entry points:
+    ``config.load_config`` of the path's config copy, ``build_map_builder``
+    with the back end, ``set_tracking_to_odom`` / ``set_tracking_to_gps``,
+    one odometry pose, scan and GPS fix a scan through ``insert_odom`` /
+    ``insert_pointcloud`` / ``insert_gps`` in stamp order, ``finish``.
+    Held to the JAX package's run of the same feed (``JAX_SENSOR``); then
+    its final solve again, twice with each solver, bit for bit."""
+    from staticmapping_torch import config as config_lib
+    from staticmapping_torch.common import np_se3, prof
+    from staticmapping_torch.common.geo import LocalCartesian
+    from staticmapping_torch.io import kitti, synthetic
+    from staticmapping_torch.registration import icp_fast
+
+    work = os.path.join(ROOT, "chiprun_out", "chip_smoke_sensors")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    scans, gt = backend_sequence(synthetic.make_sequence)
+    cfg = sensor_config(config_lib, os.path.join(ROOT, SENSOR_PATH["cfg"]),
+                        work)
+    feed, truth = sensor_feed(gt, LocalCartesian, np_se3)
+    _reset_counts(nn_search)
+    try:
+        with last_solve_recorded() as final:
+            mb = config_lib.build_map_builder(cfg, with_backend=True,
+                                              device=DEV)
+            run = drive_sensor_path(mb, scans, feed, np_se3,
+                                    sync=torch.cuda.synchronize)
+    finally:
+        prof.disable()
+    launches = dict(nn_search.launches)
+    stages = prof.stats()
+    out = cfg.map_builder.export_file_path
+    got = sensor_results(mb, gt, truth, kitti.ate_rmse, out)
+    J = JAX_SENSOR
+    gaps = {"gps_coord_transform": transform_gap(
+                got["gps_coord_transform"], J["gps_coord_transform"]),
+            "tf_odom_lidar": transform_gap(got["tf_odom_lidar"],
+                                           J["tf_odom_lidar"])}
+    limits = {"enu_error_m": max(2.0 * J["enu_error_m"], SENSOR_FLOOR_M),
+              "ate_m": max(2.0 * J["ate_m"], SENSOR_FLOOR_M)}
+    poses = kitti.read_poses(os.path.join(out, "kitti_pose.txt"))
+    res = {"phase": "sensors", "n_scans": len(scans), **run, **got,
+           "scans_per_s": len(scans) / run["insert_s"],
+           "save_maps_s": stages["SaveMaps"]["sum"],
+           "limits": limits, "jax": J,
+           "gaps": {k: {"m": t, "rad": r} for k, (t, r) in gaps.items()},
+           "launches": launches, "icp_trips": icp_fast.trip_counts(),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "final_solve": final_solve_twice(final)}
+    emit(res)
+    for solver, rep in res["final_solve"]["solvers"].items():
+        if not rep["equal"]:
+            raise AssertionError(f"sensors: the final {solver} solve gave "
+                                 f"other bits on its second run: {rep}")
+    for k in NN_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"sensors: the {k} nn kernel never "
+                                 "launched")
+    if run["gps_init_submap"] is None or got["gps_factors"] <= 0:
+        raise AssertionError("sensors: the GPS init never fired")
+    if got["loop_edge_count"] != 0:
+        raise AssertionError("sensors: a loop edge was added with loop "
+                             "closing kept out")
+    if len(poses) != len(mb.trajectory) or not np.isfinite(poses).all():
+        raise AssertionError("sensors: kitti_pose.txt does not hold finite "
+                             "submap poses")
+    for key, limit in limits.items():
+        if not got[key] <= limit:
+            raise AssertionError(f"sensors: {key} {got[key]} exceeds "
+                                 f"{limit}")
+    for key, (m, rad) in SENSOR_TRANSFORM_TOL.items():
+        t, r = gaps[key]
+        if not (t <= m and r <= rad):
+            raise AssertionError(f"sensors: {key} lies {t} m, {r} rad from "
+                                 f"the JAX run's (limits {m} m, {rad} rad)")
+    if abs(got["keyframes"] - J["keyframes"]) > CLI_KEYFRAME_TOL:
+        raise AssertionError(f"sensors: {got['keyframes']} keyframes, the "
+                             f"JAX run {J['keyframes']}")
+    if not (abs(got["static_voxels"] - J["static_voxels"])
+            <= CLI_STATIC_VOXEL_TOL * J["static_voxels"]):
+        raise AssertionError(f"sensors: {got['static_voxels']} static "
+                             f"voxels, the JAX run {J['static_voxels']}")
+    if got["pcds"] != J["pcds"]:
+        raise AssertionError(f"sensors: the raw sensor PCDs {got['pcds']} "
+                             f"are not the JAX run's {J['pcds']}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2085,6 +2240,7 @@ def main() -> int:
     mb, _ = cli_path(nn_search)
     mrvm_vs_plain(mb)
     backend = backend_path(nn_search)
+    sensors = sensors_path(nn_search)
     matchers = matchers_path(nn_search)
     outputs = outputs_path(nn_search)
     multidevice = multidevice_path(nn_search)
@@ -2096,12 +2252,13 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
-    # K1 and K2 launch on the main path, the back-end path, the three
-    # matcher runs, the outputs path's three parts and the multidevice
-    # path's ranks
+    # K1 and K2 launch on the main path, the back-end path, the sensor
+    # path, the three matcher runs, the outputs path's three parts and the
+    # multidevice path's ranks
     emit({"kernels": [
         entry(meta, NN_SOURCE,
               res["launches"][k] + backend["launches"][k]
+              + sensors["launches"][k]
               + sum(r["launches"][k] for r in matchers["runs"].values())
               + outputs["launches"][k] + multidevice["launches"][k],
               timing[k])

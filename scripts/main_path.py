@@ -1,12 +1,17 @@
 """Settings of the port's main path, its CLI path, its back-end path, its
-matcher path and its outputs path, shared by ``chip_smoke.py`` (the port on the GPU),
-``scripts/profile_main_path.py`` and the JAX references
+matcher path, its outputs path and its sensor path, shared by
+``chip_smoke.py`` (the port on the GPU), ``scripts/profile_main_path.py``,
+``scripts/torch_sensor_ate.py`` and the JAX references
 ``scripts/jax_main_path_ate.py``, ``scripts/jax_cli_ate.py``,
-``scripts/jax_backend_ate.py`` and ``scripts/jax_matcher_ate.py``.  Plain Python and numpy: importing it loads
-neither torch nor JAX."""
+``scripts/jax_backend_ate.py``, ``scripts/jax_matcher_ate.py`` and
+``scripts/jax_sensor_ate.py``.  Plain Python and numpy: importing it loads
+neither torch nor JAX; the functions that drive a package take its modules
+as arguments."""
 from __future__ import annotations
 
+import hashlib
 import os
+import time
 
 import numpy as np
 
@@ -129,6 +134,226 @@ OUTPUTS_PATH = {
                           "max_pairs": 64},
               "min_edges": 3, "base_move_m": 0.2, "error_ratio": 0.3},
 }
+
+
+# The sensor path: GPS- and odometry-aided mapping without loop closure, as
+# mapping vans with an RTK/INS receiver run it.  BACKEND_PATH's world and
+# front end (the square, seed 7, 92 poses; the chunked type-6 front end, 16
+# scans a chunk, pair matches in batches of 16; the default widths) with a
+# copy of config/synthetic.xml (``sensor_config``) whose
+# isam_optimizer_options turn GPS, odometry and the extrinsic calibration
+# on, with the reference's defaults for the GPS init, and whose
+# loop_ignore_threshold of 1000 keeps every loop candidate out.  The chunked
+# front end jumps 2.8 m at scans 77-78 of this world: here the GPS factors,
+# not a loop edge, must pull the map back.  The messages (``sensor_feed``):
+# - GPS: one fix a scan, ``gps_delay_s`` after it, at the antenna
+#   (``tracking_to_gps``) midway between the scan's pose and the next, in
+#   an ENU frame that is the map turned by ``enu_yaw`` and moved by
+#   ``enu_offset`` (tests/test_sensors.py:121-122), with N(0,
+#   ``gps_noise_m``) on each axis, turned into latitude, longitude and
+#   altitude by ``LocalCartesian(*geo_origin).reverse``; status fixed.
+# - Odometry: one pose a scan at its stamp, odom_k = C⁻¹ · pose_k · C, C
+#   the true lidar→odom extrinsic ``odom_calib`` (euler, translation;
+#   tests/test_sensors.py:213-214) and pose_k the ground truth with N(0,
+#   ``odom_drift_rad``) rad and N(0, ``odom_drift_m``) m of drift added each
+#   step.  ``tracking_to_odom`` stays the identity, so the calibration node
+#   has to find C.
+# All noise comes from numpy.random.default_rng(seed): the GPS noise of
+# every fix, then the rotation and the translation drift of every step.
+SENSOR_PATH = {
+    **BACKEND_PATH, "pair_match_batch": 16,
+    "optimizer": {"use_gps": True, "use_odom": True,
+                  "enable_extrinsic_calib": True, "gps_factor_init_num": 20,
+                  "gps_factor_init_angle_rad": 0.5,
+                  "gps_factor_sample_step": 1},
+    "loop_ignore_threshold": 1000,
+    "gps_delay_s": 0.05, "tracking_to_gps": (0.1, 0.0, 0.2),
+    "enu_yaw": 0.8, "enu_offset": (100.0, -50.0, 2.0), "gps_noise_m": 0.05,
+    "geo_origin": (48.8566, 2.3522, 35.0),
+    "odom_calib": ((0.05, 0.03, 0.15), (0.5, 0.2, 0.0)),
+    "odom_drift_rad": 0.002, "odom_drift_m": 0.02,
+}
+
+
+def sensor_config(config_lib, src: str, work: str, **optimizer):
+    """A package's ``PipelineConfig`` for the sensor path: a copy of the
+    XML config ``src`` written into ``work`` with SENSOR_PATH's
+    isam_optimizer_options (``optimizer`` overrides some) and
+    loop_ignore_threshold, read by the package's own loader, with the
+    chunked front end set as the CLI's --pipelined sets it and the outputs
+    in ``work/out``."""
+    import xml.etree.ElementTree as ET
+    S = SENSOR_PATH
+    tree = ET.parse(src)
+    be = tree.getroot().find("static_mapping/back_end_options")
+    node = be.find("isam_optimizer_options")
+    if node is None:
+        node = ET.SubElement(be, "isam_optimizer_options")
+    for k, v in {**S["optimizer"], **optimizer}.items():
+        node.set(k, str(v).lower() if isinstance(v, bool) else str(v))
+    be.find("loop_detector_setting").set(
+        "loop_ignore_threshold", str(S["loop_ignore_threshold"]))
+    path = os.path.join(work, "sensor.xml")
+    tree.write(path)
+    cfg = config_lib.load_config(path)
+    cfg.map_builder.export_file_path = os.path.join(work, "out")
+    cfg.map_builder.pipelined = S["pipelined"]
+    cfg.map_builder.pipeline_chunk = S["chunk"]
+    cfg.map_builder.pair_match_batch = S["pair_match_batch"]
+    return cfg
+
+
+def sensor_feed(gt_poses, local_cartesian, np_se3):
+    """The sensor path's messages for the scans at ``gt_poses``, in stamp
+    order: ``("odom", stamp, pose)``, ``("scan", stamp, index)`` and
+    ``("gps", stamp, (lat, lon, alt))``; and the noise-free latitude,
+    longitude and altitude of the antenna at each scan.
+    ``local_cartesian`` and ``np_se3`` are a package's
+    ``common.geo.LocalCartesian`` and ``common.np_se3``."""
+    S = SENSOR_PATH
+    period = 1.0 / S["rate"]
+    rng = np.random.default_rng(S["seed"])
+    geo = local_cartesian(*S["geo_origin"])
+    n = len(gt_poses)
+    rel = [np.linalg.solve(gt_poses[0], g) for g in gt_poses]
+    antenna = np.stack([T[:3, :3] @ S["tracking_to_gps"] + T[:3, 3]
+                        for T in rel])
+    after = np.vstack([antenna[1:], 2.0 * antenna[-1:] - antenna[-2:-1]])
+    T_enu = np_se3.from_rt(np_se3.euler_to_matrix([0.0, 0.0, S["enu_yaw"]]),
+                           S["enu_offset"])
+
+    def enu(p):
+        return p @ T_enu[:3, :3].T + T_enu[:3, 3]
+    fixes = (enu(0.5 * (antenna + after))
+             + rng.normal(0.0, S["gps_noise_m"], (n, 3)))
+    rot = rng.normal(0.0, S["odom_drift_rad"], (n, 3))
+    trans = rng.normal(0.0, S["odom_drift_m"], (n, 3))
+    C = np_se3.from_rt(np_se3.euler_to_matrix(S["odom_calib"][0]),
+                       S["odom_calib"][1])
+    C_inv = np_se3.inverse(C)
+    drifted = rel[0]
+    feed = []
+    for k in range(n):
+        if k > 0:
+            drifted = (drifted @ np_se3.inverse(rel[k - 1]) @ rel[k]
+                       @ np_se3.from_rt(np_se3.euler_to_matrix(rot[k]),
+                                        trans[k]))
+        feed += [("odom", k * period, C_inv @ drifted @ C),
+                 ("scan", k * period, k),
+                 ("gps", k * period + S["gps_delay_s"],
+                  tuple(float(x) for x in geo.reverse(fixes[k])))]
+    truth = [tuple(float(x) for x in geo.reverse(p)) for p in enu(antenna)]
+    return feed, truth
+
+
+def drive_sensor_path(mb, scans, feed, np_se3, sync=lambda: None,
+                      finish: bool = True) -> dict:
+    """Set ``mb``'s GPS and odometry extrinsics, feed ``feed`` through
+    ``insert_odom`` / ``insert_pointcloud`` / ``insert_gps`` and call
+    ``finish`` (unless told not to).  Returns the submap at which the GPS
+    init fired in this call, the pose-graph solves' count and seconds, and
+    the seconds of the insert loop and of ``finish``."""
+    be = mb.backend
+    mb.set_tracking_to_odom(np.eye(4))
+    mb.set_tracking_to_gps(np_se3.from_rt(np.eye(3),
+                                          SENSOR_PATH["tracking_to_gps"]))
+    rec = {"gps_init_submap": None, "pose_graph_solves": 0,
+           "pose_graph_solve_s": 0.0}
+    add_submap, optimize = be.add_submap, be.graph.optimize
+
+    def added(trajectory, submap):
+        add_submap(trajectory, submap)
+        if (rec["gps_init_submap"] is None
+                and be._calculated_first_gps_coord):
+            rec["gps_init_submap"] = int(submap.id)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return optimize(*args, **kwargs)
+        finally:
+            rec["pose_graph_solves"] += 1
+            rec["pose_graph_solve_s"] += time.perf_counter() - t0
+    be.add_submap, be.graph.optimize = added, timed
+    try:
+        t0 = time.perf_counter()
+        for kind, stamp, payload in feed:
+            if kind == "scan":
+                mb.insert_pointcloud(stamp, scans[payload])
+            elif kind == "odom":
+                mb.insert_odom(stamp, payload)
+            else:
+                mb.insert_gps(stamp, *payload)
+        sync()
+        t1 = time.perf_counter()
+        if finish:
+            mb.finish()
+            sync()
+    finally:
+        del be.add_submap, be.graph.optimize
+    return {**rec, "insert_s": t1 - t0,
+            "finish_s": time.perf_counter() - t1}
+
+
+def pcd_points(path: str) -> int:
+    """The POINTS count of a PCD file's header."""
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"POINTS"):
+                return int(line.split()[1])
+    raise ValueError(f"{path} has no POINTS line")
+
+
+def file_digest(path: str) -> dict:
+    with open(path, "rb") as f:
+        data = f.read()
+    return {"bytes": len(data), "sha256": hashlib.sha256(data).hexdigest()}
+
+
+def enu_error(frames, truth_lla, collector, period: float) -> float:
+    """RMS over keyframes ``(stamp, pose)`` of the antenna's distance from
+    its noise-free position, both in ``collector``'s ENU frame (the one
+    anchored at its first fix)."""
+    p_tg = np.asarray(SENSOR_PATH["tracking_to_gps"])
+    err = [T[:3, :3] @ p_tg + T[:3, 3] - collector.reference_gps.forward(
+               *truth_lla[int(round(st / period))]) for st, T in frames]
+    return float(np.sqrt(np.mean(np.sum(np.square(err), axis=1))))
+
+
+def transform_gap(A, B):
+    """``(translation m, rotation rad)`` between two 4×4 transforms."""
+    R = np.asarray(A)[:3, :3].T @ np.asarray(B)[:3, :3]
+    skew = R - R.T
+    sin = 0.5 * np.linalg.norm([skew[2, 1], skew[0, 2], skew[1, 0]])
+    cos = 0.5 * (np.trace(R) - 1.0)
+    return (float(np.linalg.norm(np.asarray(A)[:3, 3]
+                                 - np.asarray(B)[:3, 3])),
+            float(np.arctan2(sin, cos)))
+
+
+def sensor_results(mb, gt_poses, truth_lla, ate_rmse, out_dir: str) -> dict:
+    """What a sensor-path run reports, from its finished ``mb`` and its
+    export directory; either package."""
+    period = 1.0 / SENSOR_PATH["rate"]
+    be = mb.backend
+    frames = [(f.stamp, f.global_pose) for s in mb.trajectory
+              for f in s.frames]
+    static = os.path.join(out_dir, "static_map.pcd")
+    return {
+        "keyframes": len(frames), "submaps": len(mb.trajectory),
+        "gps_coord_transform": np.asarray(
+            be.get_gps_coord_transform()).tolist(),
+        "tf_odom_lidar": np.asarray(be.tf_odom_lidar).tolist(),
+        "enu_error_m": enu_error(frames, truth_lla, mb.data_collector,
+                                 period),
+        "ate_m": stamp_matched_ate(frames, gt_poses, period, ate_rmse),
+        "static_voxels": (pcd_points(static) if os.path.exists(static)
+                          else 0),
+        "pcds": {name: file_digest(os.path.join(out_dir, name))
+                 for name in ("original_gps.pcd", "original_odom.pcd")},
+        "gps_factors": len(be.graph.gps_factors),
+        "odom_factors": len(be.graph.odom_factors),
+        "loop_edge_count": be.loop_edge_count}
 
 
 def write_package_cfg(src: str, path: str) -> None:

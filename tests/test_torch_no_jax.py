@@ -22,6 +22,7 @@ def _port_sources():
              os.path.join(ROOT, "scripts", "profile_main_path.py"),
              os.path.join(ROOT, "scripts", "torch_cli_ate.py"),
              os.path.join(ROOT, "scripts", "torch_matcher_ate.py"),
+             os.path.join(ROOT, "scripts", "torch_sensor_ate.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py"),
              os.path.join(ROOT, "tests", "torch_multidevice_worker.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "staticmapping_torch")):
