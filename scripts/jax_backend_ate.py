@@ -12,9 +12,12 @@ JSON line with the ATE (keyframes matched to the ground truth by stamp), the
 loop-closure edges and their count, the loop gap
 (``scripts/main_path.py::loop_gap``) and each keyframe's error and ICP
 score.  ``--sequential`` runs the sequential front end instead, and
-``--no-backend`` leaves the back end off.  It needs JAX, not torch.
+``--no-backend`` leaves the back end off.  ``--trajectory``, ``--scans``
+and ``--seed`` swap the world for one of ``scripts/main_path.py::EVAL_ROWS``
+(bench.py's eval rows), at the same settings.  It needs JAX, not torch.
 
     python3 scripts/jax_backend_ate.py [--sequential] [--no-backend]
+        [--trajectory square|eight] [--scans N] [--seed S]
 
 On an 8-core CPU shared with other work, with the back end on, it did
 not finish in 3 hours (5.6 GB): each of its 26 loop verifications is
@@ -39,6 +42,11 @@ def main() -> None:
     p.add_argument("--sequential", action="store_true",
                    help="the sequential front end, whatever BACKEND_PATH says")
     p.add_argument("--no-backend", action="store_true")
+    p.add_argument("--trajectory", default=None,
+                   help="the world's trajectory (BACKEND_PATH's by default)")
+    p.add_argument("--scans", type=int, default=None,
+                   help="scans (0: the whole trajectory)")
+    p.add_argument("--seed", type=int, default=None)
     args = p.parse_args()
     import jax
     import numpy as np
@@ -53,7 +61,10 @@ def main() -> None:
     from staticmapping_tpu import config as config_lib
     from staticmapping_tpu.io import kitti, synthetic
 
-    scans, gt = backend_sequence(synthetic.make_sequence)
+    world = {k: v for k, v in (("trajectory", args.trajectory),
+                               ("n_scans", args.scans),
+                               ("seed", args.seed)) if v is not None}
+    scans, gt = backend_sequence(synthetic.make_sequence, **world)
     rel_gt = [np.linalg.solve(gt[0], g) for g in gt]
     cfg = config_lib.load_config(os.path.join(ROOT, BACKEND_PATH["cfg"]))
     cfg.map_builder.export_file_path = tempfile.mkdtemp(prefix="jax_be_")
@@ -87,7 +98,8 @@ def main() -> None:
                                [s.stamp for s in mb.trajectory], rel_gt,
                                period),
         "pipelined": pipelined, "backend": be is not None,
-        "seed": BACKEND_PATH["seed"], "seconds": seconds,
+        "trajectory": world.get("trajectory", BACKEND_PATH["trajectory"]),
+        "seed": world.get("seed", BACKEND_PATH["seed"]), "seconds": seconds,
         "frames": keyframe_errors(frames, gt, period)}))
 
 

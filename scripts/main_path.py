@@ -1,7 +1,8 @@
-"""Settings of the port's main path, its CLI path, its back-end path, its
-matcher path, its outputs path and its sensor path, shared by
-``chip_smoke.py`` (the port on the GPU), ``scripts/profile_main_path.py``,
-``scripts/torch_sensor_ate.py`` and the JAX references
+"""Settings of the port's main path, its CLI path, its back-end path and
+its eval rows, its matcher path, its outputs path and its sensor paths
+(with and without loop closing), shared by ``chip_smoke.py`` (the port on
+the GPU), ``scripts/profile_main_path.py``, ``scripts/torch_sensor_ate.py``,
+``scripts/torch_eval_rows.py`` and the JAX references
 ``scripts/jax_main_path_ate.py``, ``scripts/jax_cli_ate.py``,
 ``scripts/jax_backend_ate.py``, ``scripts/jax_matcher_ate.py`` and
 ``scripts/jax_sensor_ate.py``.  Plain Python and numpy: importing it loads
@@ -68,6 +69,105 @@ BACKEND_PATH = {
     # matches in batches of 16
     "pipelined": True, "chunk": 16,
 }
+
+
+# bench.py's eval rows (bench.py:410-418) that the back-end path does not
+# run: BACKEND_PATH's settings (config/synthetic.xml, the chunked front end,
+# 16 scans a chunk, pair matches in batches of 16, the default widths) with
+# the world swapped.  The figure-eight (io/synthetic.py:55-72, 240 poses,
+# about 1.5 m a step) is the only world whose loop closes at a crossing,
+# entered from another heading; seeds 8 and 9 draw other worlds around the
+# square.  The CLI fixes seed 7, so the rows drive build_map_builder,
+# insert_pointcloud and finish as bench.py::eval_run does
+# (``eval_config``, ``drive_eval_row``).
+EVAL_ROWS = {
+    "eight_backend": {"trajectory": "eight", "n_scans": 240, "seed": 7,
+                      "backend": True},
+    "eight_frontend": {"trajectory": "eight", "n_scans": 240, "seed": 7,
+                       "backend": False},
+    "square_seed8": {"trajectory": "square", "n_scans": 0, "seed": 8,
+                     "backend": True},
+    "square_seed9": {"trajectory": "square", "n_scans": 0, "seed": 9,
+                     "backend": True},
+}
+
+
+# ATE (m) of staticmapping_tpu on each row's scans with the back end off,
+# measured on an 8-core CPU by
+# ``python3 scripts/jax_backend_ate.py --no-backend --trajectory T --scans N
+# --seed S`` (eight 240 7: 37.3 min, 57.5 CPU-min; square 0 8: 22.0 min,
+# 29.4 CPU-min; square 0 9: 19.4 min, 26.4 CPU-min; the three ran at once).
+# A row with the back end is held to it (the JAX back-end run does not
+# finish on the CPU: scripts/jax_backend_ate.py); the row without the back
+# end to max(2 x it, 0.35 m), tests/test_pipeline.py's bound.
+EVAL_JAX_FRONTEND_ATE_M = {
+    ("eight", 240, 7): 0.487468457997727,
+    ("square", 0, 8): 0.3278117974514201,
+    ("square", 0, 9): 0.25978723337768395,
+}
+
+
+def eval_limit(row) -> float:
+    """An eval row's ATE limit (m)."""
+    jax_ate = EVAL_JAX_FRONTEND_ATE_M[(row["trajectory"], row["n_scans"],
+                                       row["seed"])]
+    return jax_ate if row["backend"] else max(2.0 * jax_ate, 0.35)
+
+
+def eval_sequence(make_sequence, row):
+    """An eval row's scans and ground-truth poses."""
+    return backend_sequence(make_sequence, trajectory=row["trajectory"],
+                            n_scans=row["n_scans"], seed=row["seed"])
+
+
+def eval_config(config_lib, out: str):
+    """A package's ``PipelineConfig`` for an eval row: config/synthetic.xml
+    with the chunked front end set as the CLI's --pipelined sets it, the
+    outputs in ``out``."""
+    B = BACKEND_PATH
+    cfg = config_lib.load_config(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        B["cfg"]))
+    cfg.map_builder.export_file_path = out
+    cfg.map_builder.pipelined = B["pipelined"]
+    cfg.map_builder.pipeline_chunk = B["chunk"]
+    cfg.map_builder.pair_match_batch = 16
+    return cfg
+
+
+def drive_eval_row(mb, scans, sync=lambda: None,
+                   rate: float = BACKEND_PATH["rate"]) -> dict:
+    """Feed ``scans`` through ``insert_pointcloud`` at ``rate`` (Hz) and
+    call ``finish``: the seconds of each."""
+    period = 1.0 / rate
+    t0 = time.perf_counter()
+    for i, pts in enumerate(scans):
+        mb.insert_pointcloud(i * period, pts)
+    sync()
+    t1 = time.perf_counter()
+    mb.finish()
+    sync()
+    return {"insert_s": t1 - t0, "finish_s": time.perf_counter() - t1,
+            "scans_per_s": len(scans) / (t1 - t0)}
+
+
+def eval_results(mb, gt_poses, ate_rmse) -> dict:
+    """What an eval row reports of its finished ``mb``; either package."""
+    period = 1.0 / BACKEND_PATH["rate"]
+    be = mb.backend
+    frames = [(f.stamp, f.global_pose) for s in mb.trajectory
+              for f in s.frames]
+    return {
+        "keyframes": len(frames), "submaps": len(mb.trajectory),
+        "ate_m": stamp_matched_ate(frames, gt_poses, period, ate_rmse),
+        "loop_edge_count": 0 if be is None else be.loop_edge_count,
+        "loop_edges": [] if be is None else [
+            (int(i), int(j)) for i, j in zip(be.graph.factors.i,
+                                             be.graph.factors.j)
+            if j != i + 1],
+        "loop_gap_m": loop_gap([s.global_pose for s in mb.trajectory],
+                               [s.stamp for s in mb.trajectory], gt_poses,
+                               period)}
 
 
 # The matcher path: the other matcher types at the default widths (scan
@@ -174,16 +274,25 @@ SENSOR_PATH = {
     "odom_drift_rad": 0.002, "odom_drift_m": 0.02,
 }
 
+# The sensor path with loop closing: an RTK van whose drive revisits a
+# street.  SENSOR_PATH's world, front end, widths and feed, with
+# config/synthetic.xml's own loop_ignore_threshold (15; None keeps the
+# config's): the loop verifier on K2, the GICP gate on K1, loop edges and
+# GPS factors in one graph.
+SENSOR_LOOP_PATH = {**SENSOR_PATH, "loop_ignore_threshold": None}
 
-def sensor_config(config_lib, src: str, work: str, **optimizer):
-    """A package's ``PipelineConfig`` for the sensor path: a copy of the
-    XML config ``src`` written into ``work`` with SENSOR_PATH's
-    isam_optimizer_options (``optimizer`` overrides some) and
-    loop_ignore_threshold, read by the package's own loader, with the
-    chunked front end set as the CLI's --pipelined sets it and the outputs
-    in ``work/out``."""
+
+def sensor_config(config_lib, src: str, work: str, path=SENSOR_PATH,
+                  **optimizer):
+    """A package's ``PipelineConfig`` for a sensor path (``path``,
+    SENSOR_PATH or SENSOR_LOOP_PATH): a copy of the XML config ``src``
+    written into ``work`` with the path's isam_optimizer_options
+    (``optimizer`` overrides some) and loop_ignore_threshold (None keeps
+    the config's), read by the package's own loader, with the chunked front
+    end set as the CLI's --pipelined sets it and the outputs in
+    ``work/out``."""
     import xml.etree.ElementTree as ET
-    S = SENSOR_PATH
+    S = path
     tree = ET.parse(src)
     be = tree.getroot().find("static_mapping/back_end_options")
     node = be.find("isam_optimizer_options")
@@ -191,8 +300,9 @@ def sensor_config(config_lib, src: str, work: str, **optimizer):
         node = ET.SubElement(be, "isam_optimizer_options")
     for k, v in {**S["optimizer"], **optimizer}.items():
         node.set(k, str(v).lower() if isinstance(v, bool) else str(v))
-    be.find("loop_detector_setting").set(
-        "loop_ignore_threshold", str(S["loop_ignore_threshold"]))
+    if S["loop_ignore_threshold"] is not None:
+        be.find("loop_detector_setting").set(
+            "loop_ignore_threshold", str(S["loop_ignore_threshold"]))
     path = os.path.join(work, "sensor.xml")
     tree.write(path)
     cfg = config_lib.load_config(path)
@@ -250,15 +360,16 @@ def drive_sensor_path(mb, scans, feed, np_se3, sync=lambda: None,
                       finish: bool = True) -> dict:
     """Set ``mb``'s GPS and odometry extrinsics, feed ``feed`` through
     ``insert_odom`` / ``insert_pointcloud`` / ``insert_gps`` and call
-    ``finish`` (unless told not to).  Returns the submap at which the GPS
-    init fired in this call, the pose-graph solves' count and seconds, and
-    the seconds of the insert loop and of ``finish``."""
+    ``finish`` (unless told not to).  Returns the submaps at which the GPS
+    init fired and the first loop edge was added in this call, the
+    pose-graph solves' count and seconds, and the seconds of the insert
+    loop and of ``finish``."""
     be = mb.backend
     mb.set_tracking_to_odom(np.eye(4))
     mb.set_tracking_to_gps(np_se3.from_rt(np.eye(3),
                                           SENSOR_PATH["tracking_to_gps"]))
-    rec = {"gps_init_submap": None, "pose_graph_solves": 0,
-           "pose_graph_solve_s": 0.0}
+    rec = {"gps_init_submap": None, "first_loop_edge_submap": None,
+           "pose_graph_solves": 0, "pose_graph_solve_s": 0.0}
     add_submap, optimize = be.add_submap, be.graph.optimize
 
     def added(trajectory, submap):
@@ -266,6 +377,8 @@ def drive_sensor_path(mb, scans, feed, np_se3, sync=lambda: None,
         if (rec["gps_init_submap"] is None
                 and be._calculated_first_gps_coord):
             rec["gps_init_submap"] = int(submap.id)
+        if rec["first_loop_edge_submap"] is None and be.loop_edge_count:
+            rec["first_loop_edge_submap"] = int(submap.id)
 
     def timed(*args, **kwargs):
         t0 = time.perf_counter()
@@ -353,7 +466,10 @@ def sensor_results(mb, gt_poses, truth_lla, ate_rmse, out_dir: str) -> dict:
                  for name in ("original_gps.pcd", "original_odom.pcd")},
         "gps_factors": len(be.graph.gps_factors),
         "odom_factors": len(be.graph.odom_factors),
-        "loop_edge_count": be.loop_edge_count}
+        "loop_edge_count": be.loop_edge_count,
+        "loop_gap_m": loop_gap([s.global_pose for s in mb.trajectory],
+                               [s.stamp for s in mb.trajectory], gt_poses,
+                               period)}
 
 
 def write_package_cfg(src: str, path: str) -> None:
@@ -407,10 +523,11 @@ def write_matcher_cfg(src: str, matcher_type: int, path: str) -> None:
     tree.write(path)
 
 
-def backend_sequence(make_sequence):
+def backend_sequence(make_sequence, **world):
     """The back-end path's scans and ground-truth poses, as the CLI makes
-    them."""
-    B = BACKEND_PATH
+    them; ``world`` (``trajectory``, ``n_scans``, ``seed``) swaps the world
+    as an eval row does."""
+    B = {**BACKEND_PATH, **world}
     return make_sequence(n_scans=B["n_scans"], trajectory=B["trajectory"],
                          seed=B["seed"])
 

@@ -32,6 +32,8 @@ from staticmapping_torch import parallel as tap
 from staticmapping_torch.registration import gicp as tgicp
 from staticmapping_torch.registration import icp_pm as ticp_pm
 
+import torch_loop_stream as loop_stream
+
 CPU = "cpu"
 
 
@@ -179,73 +181,29 @@ def test_sharded_pair_registration_is_refused():
 # a fixed submap stream through both IncrementalOptimizers
 # ---------------------------------------------------------------------------
 
-# the loop detector's settings for the stream: config/synthetic.xml's
-# thresholds and density-normalised scores, with gates cut to the small loop
-STREAM_SETTINGS = dict(
-    loop_ignore_threshold=8, max_close_loop_distance=5.0,
-    nearest_history_pos_num=1, use_descriptor=True, m2dp_match_score=0.9,
-    accept_scan_match_score=0.75, score_spacing_ref=0.35, nn_tile=512)
-YAW_DRIFT = 0.003      # rad the "front end" adds to each submap-to-submap match
-
-
-class _StreamSubmap:
-    """What ``add_submap`` reads of a submap: its id, pose, cloud, M2DP
-    descriptor, match to the next submap and cached target normals."""
-
-    def __init__(self, idx, pose, cloud, normals, T_next):
-        self.id, self.global_pose, self.cloud = idx, pose.copy(), cloud
-        self._normals, self.match_transform_to_next = normals, T_next
-        self.descriptor = None
-
-    def normal_cloud(self, leaf_size):
-        return self._normals
-
-
-def _run_stream(backend, clouds, normals, poses, matches):
-    subs, states = [], []
-    for k in range(len(clouds)):
-        subs.append(_StreamSubmap(k, poses[k], clouds[k], normals[k],
-                                  matches[k] if k < len(matches) else None))
-        backend.add_submap(subs, subs[-1])
-        states.append(backend.loop_detector.status)
-    return subs, states
-
-
 @pytest.fixture(scope="module")
 def stream():
-    """A 44-pose square loop, one submap every second pose with a
-    2000-point scan rendered at its ground-truth pose (2048 slots), and
-    matches that drift 0.003 rad a submap in yaw: the same stream, with the
-    JAX package's target normals, through both packages."""
-    gt = synthetic.square_loop_trajectory(side_steps=5, corner_steps=5)[::2]
-    world = synthetic.make_world(seed=3)
-    matches = [np_se3.inverse(a) @ b @ _yaw(YAW_DRIFT)
-               for a, b in zip(gt[:-1], gt[1:])]
-    poses = [gt[0]]
-    for m in matches:
-        poses.append(poses[-1] @ m)
-    clouds = [jcloud.from_numpy(synthetic.render_scan(
-        world, g, max_points=2000, max_range=30.0, seed=k)[:, :3],
-        capacity=2048) for k, g in enumerate(gt)]
-    normals = [jfrontend._target_normals(c, leaf_size=8) for c in clouds]
+    """tests/torch_loop_stream.py's stream (a 44-pose square loop, one
+    2000-point submap every second pose, matches that drift 0.003 rad a
+    submap in yaw, the JAX package's target normals) through both
+    packages."""
+    st = loop_stream.make_stream()
     be_j = jopt.IncrementalOptimizer(
         jopt.OptimizerOptions(),
-        loop_settings=jld.LoopDetectorSettings(**STREAM_SETTINGS))
+        loop_settings=jld.LoopDetectorSettings(**loop_stream.STREAM_SETTINGS))
     be_t = topt.IncrementalOptimizer(
         topt.OptimizerOptions(),
-        loop_settings=tld.LoopDetectorSettings(**STREAM_SETTINGS),
+        loop_settings=tld.LoopDetectorSettings(**loop_stream.STREAM_SETTINGS),
         device=CPU)
-    run_j = _run_stream(be_j, clouds, normals, poses, matches)
-    run_t = _run_stream(be_t, [interop.point_cloud(c, CPU) for c in clouds],
-                        [interop.normal_cloud(n, CPU) for n in normals],
-                        poses, matches)
-    return dict(gt=gt, drifted=poses, jax=(be_j,) + run_j,
+    run_j = loop_stream.run_stream(be_j, *loop_stream.package_inputs(
+        st, "jax"), st["drifted"], st["matches"])
+    run_t = loop_stream.run_stream(be_t, *loop_stream.package_inputs(
+        st, "torch", CPU), st["drifted"], st["matches"])
+    return dict(gt=st["gt"], drifted=st["drifted"], jax=(be_j,) + run_j,
                 torch=(be_t,) + run_t)
 
 
-def _loop_edges(backend):
-    g = backend.graph.factors
-    return [(i, j, T) for i, j, T in zip(g.i, g.j, g.T_meas) if j != i + 1]
+_loop_edges = loop_stream.loop_edges
 
 
 def test_stream_loop_states_match_jax(stream):

@@ -23,6 +23,10 @@ def _port_sources():
              os.path.join(ROOT, "scripts", "torch_cli_ate.py"),
              os.path.join(ROOT, "scripts", "torch_matcher_ate.py"),
              os.path.join(ROOT, "scripts", "torch_sensor_ate.py"),
+             os.path.join(ROOT, "scripts", "torch_eval_rows.py"),
+             os.path.join(ROOT, "scripts", "torch_experiment_verifier.py"),
+             os.path.join(ROOT, "scripts", "torch_profile_floor.py"),
+             os.path.join(ROOT, "scripts", "torch_profile_chunk_ablate.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py"),
              os.path.join(ROOT, "tests", "torch_multidevice_worker.py")]
     for dirpath, _, files in os.walk(os.path.join(ROOT, "staticmapping_torch")):
