@@ -1,8 +1,8 @@
 """Settings of the port's main path, its CLI path, its back-end path and
 its eval rows, its matcher path, its outputs path and its sensor paths
 (with and without loop closing), shared by ``chip_smoke.py`` (the port on
-the GPU), ``scripts/profile_main_path.py``, ``scripts/torch_sensor_ate.py``,
-``scripts/torch_eval_rows.py`` and the JAX references
+the GPU), ``scripts/torch_sensor_ate.py``, ``scripts/torch_eval_rows.py``
+and the JAX references
 ``scripts/jax_main_path_ate.py``, ``scripts/jax_cli_ate.py``,
 ``scripts/jax_backend_ate.py``, ``scripts/jax_matcher_ate.py`` and
 ``scripts/jax_sensor_ate.py``.  Plain Python and numpy: importing it loads

@@ -167,6 +167,7 @@ class MapBuilder:
         self._next_submap_id = 0
         self._pending_submaps: List[Submap] = []       # deferred pair queue
         self._pair_results_inflight: List[tuple] = []  # matched batches
+        self._num_scans = 0          # insert_pointcloud calls (span ids)
         self._submap_dir = None
         self.memory_manager: Optional[MemoryManager] = None
         if self.options.submap.enable_disk_saving:
@@ -256,6 +257,11 @@ class MapBuilder:
         """InsertPointcloudMsg for host arrays (map_builder.cc:156-178):
         transform into the tracking frame, accumulate, then feed the front
         end."""
+        with prof.block("InsertPointcloud", req=self._num_scans):
+            self._num_scans += 1
+            self._insert_pointcloud(stamp, points)
+
+    def _insert_pointcloud(self, stamp: float, points: np.ndarray) -> None:
         points = np.asarray(points)
         if not np.allclose(self.tracking_to_lidar, np.eye(4)):
             R = self.tracking_to_lidar[:3, :3].astype(points.dtype)
@@ -424,14 +430,19 @@ class MapBuilder:
         in submap order."""
         queued, pairs, guesses, Ts_d, scores_d = \
             self._pair_results_inflight.pop(0)
-        if pairs:
-            Ts = Ts_d.cpu().double().numpy()
-            scores = scores_d.cpu().double().numpy()
-            for k, s in enumerate(pairs):
-                self._store_pair_result(s, self.trajectory[s.id - 1],
-                                        Ts[k], float(scores[k]), guesses[k])
-        for s in queued:
-            self._to_backend(s)
+        # the batch's request id is its first submap's id
+        with prof.block("SubmapPairConsume", req=queued[0].id):
+            if pairs:
+                with prof.block("SubmapPairConsume:read"):
+                    prof.count("host_reads", 2)
+                    Ts = Ts_d.cpu().double().numpy()
+                    scores = scores_d.cpu().double().numpy()
+                for k, s in enumerate(pairs):
+                    self._store_pair_result(s, self.trajectory[s.id - 1],
+                                            Ts[k], float(scores[k]),
+                                            guesses[k])
+            for s in queued:
+                self._to_backend(s)
 
     def _store_pair_result(self, source: Submap, target: Submap,
                            T: np.ndarray, score: float,

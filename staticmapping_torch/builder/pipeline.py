@@ -163,7 +163,8 @@ def _make_step(chain: Optional[Callable], opts: FrontEndOptions):
             0.0) / n_valid
         pc = PointCloud(xyz=xyz, intensity=inten, factor=factor, mask=mask)
         if chain is not None:
-            pc = chain(pc)
+            with prof.block("ScanStep:filter"):
+                pc = chain(pc)
 
         # CTRV extrapolation (pose_extrapolator.cc:177-197) with the
         # predicted step clamped to 5 m / 0.5 rad per scan, so one bad
@@ -192,7 +193,8 @@ def _make_step(chain: Optional[Callable], opts: FrontEndOptions):
         # per-scan motion for compensation: the predicted scan-to-scan delta
         delta = se3.inverse(state.prev_pose) @ pred
         src = pc.motion_compensate(delta) if opts.motion_compensation else pc
-        T, score = align_fn(src, state.target, guess)
+        with prof.block("ScanStep:icp"):
+            T, score = align_fn(src, state.target, guess)
         if opts.motion_compensation and opts.use_average:
             T = se3.average_transforms(torch.stack([T, guess]))
         pose_source = se3.normalize_rotation(state.pose_target @ T)
@@ -218,10 +220,17 @@ def _make_step(chain: Optional[Callable], opts: FrontEndOptions):
         is_kf = accu_t >= mf.translation_range
         if mf.angle_range > 1e-3:
             is_kf = is_kf | (accu_a >= mf.angle_range)
-        is_kf = bool(is_kf)               # the one host read of the step
+        with prof.block("ScanStep:keyframe_read"):
+            prof.count("host_reads")
+            is_kf = bool(is_kf)
+        if is_kf:
+            with prof.block("ScanStep:target"):
+                target = make_target(src)
+        else:
+            target = state.target
 
         new_state = _FeState(
-            target=make_target(src) if is_kf else state.target,
+            target=target,
             pose_target=pose_source if is_kf else state.pose_target,
             prev_pose=pose_source, prev_stamp=stamp,
             vel_lin=new_vel_lin, vel_ang=new_vel_ang,
@@ -273,8 +282,10 @@ class DeviceFrontEnd:
         # run chunks awaiting harvest, ``queue_depth`` deep — keyframes come
         # out at the same chunk boundaries as in the JAX package.
         self.queue_depth = max(1, queue_depth)
-        self._inflight: List[tuple] = []   # (stamps_abs, outputs)
-        self._staged: List[tuple] = []     # (stamps_abs, valid, future)
+        self._inflight: List[tuple] = []   # (stamps_abs, chunk, outputs)
+        # (stamps_abs, valid, future, chunk index, first scan index)
+        self._staged: List[tuple] = []
+        self._num_chunks = 0
         self._stage_pool = ThreadPoolExecutor(max_workers=1)
         self.use_imu = bool(self.options.use_imu)
         self._imu_buf: List[tuple] = []    # (stamp, wx, wy, wz) sorted
@@ -314,13 +325,18 @@ class DeviceFrontEnd:
         return out
 
     # ------------------------------------------------------------------
-    def _run_chunk(self, state: _FeState, qdata, meta, imu_arr, valid):
+    def _run_chunk(self, state: _FeState, qdata, meta, imu_arr, valid,
+                   first_scan: int = 0):
+        """Run one chunk's valid scans; ``first_scan`` is the scan index
+        of its first slot, the request id of each ``ScanStep`` span."""
         stamps, xyz, inten, mask, _ = _unpack_chunk(qdata, meta)
         state = _rebase(state)
         outputs = []
         for k in np.flatnonzero(valid):      # padded slots are skipped
-            state, out = self._step(
-                state, (stamps[k], xyz[k], inten[k], mask[k], imu_arr[k]))
+            with prof.block("ScanStep", req=first_scan + int(k)):
+                state, out = self._step(
+                    state, (stamps[k], xyz[k], inten[k], mask[k],
+                            imu_arr[k]))
             pose, score, is_kf, src = out
             outputs.append((pose, score, is_kf, src if is_kf else None))
         return state, outputs
@@ -411,32 +427,43 @@ class DeviceFrontEnd:
                 return t.pin_memory().to(dev, non_blocking=True)
             return t.to(dev)
 
-        def job():
-            q, meta, imu_arr = _pack_chunk(buf, base, K, cap, imu)
-            return to_device(q), to_device(meta), to_device(imu_arr)
+        chunk = self._num_chunks
+        self._num_chunks += 1
 
-        self._staged.append((stamps_abs, valid,
-                             self._stage_pool.submit(job)))
+        def job():
+            with prof.block("StageChunk", req=chunk):
+                q, meta, imu_arr = _pack_chunk(buf, base, K, cap, imu)
+                return to_device(q), to_device(meta), to_device(imu_arr)
+
+        # the scan index of the chunk's first scan: scan 0 ran alone
+        self._staged.append((stamps_abs, valid, self._stage_pool.submit(job),
+                             chunk, self.num_scans - len(buf)))
 
     def _pump(self, force: bool) -> None:
         """Run staged chunks in order.  Leaves the newest one staging
         unless ``force`` (flush)."""
         while self._staged and (force or len(self._staged) > 1):
-            stamps_abs, valid, fut = self._staged.pop(0)
-            qdata, meta, imu_arr = fut.result()
-            self.state, outputs = self._run_chunk(self.state, qdata, meta,
-                                                  imu_arr, valid)
-            self._inflight.append((stamps_abs, outputs))
+            stamps_abs, valid, fut, chunk, first_scan = self._staged.pop(0)
+            with prof.block("FrontEndChunk:stage_wait", req=chunk):
+                qdata, meta, imu_arr = fut.result()
+            with prof.block("FrontEndChunk:run", req=chunk):
+                self.state, outputs = self._run_chunk(
+                    self.state, qdata, meta, imu_arr, valid, first_scan)
+            self._inflight.append((stamps_abs, chunk, outputs))
 
     def _harvest_one(self) -> List[Frame]:
         """Read the oldest run chunk's poses and scores in one transfer,
         build its keyframes, and compose the f64 global base from its
         final pose."""
-        stamps_abs, outputs = self._inflight.pop(0)
+        stamps_abs, chunk, outputs = self._inflight.pop(0)
         if not outputs:
             return []
-        poses_h = torch.stack([o[0] for o in outputs]).cpu().double().numpy()
-        scores_h = torch.stack([o[1] for o in outputs]).cpu().double().numpy()
+        with prof.block("FrontEndChunk:harvest_read", req=chunk):
+            prof.count("host_reads", 2)
+            poses_h = torch.stack([o[0] for o in outputs]).cpu().double(
+            ).numpy()
+            scores_h = torch.stack([o[1] for o in outputs]).cpu().double(
+            ).numpy()
         self.last_score = float(scores_h[-1])
         frames = [
             Frame(stamp=float(stamps_abs[i]), cloud=src,

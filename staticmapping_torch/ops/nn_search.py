@@ -26,6 +26,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .. import cuda_build
+from ..common import prof
 
 # Far-away coordinate used for invalid/padded points.
 _FAR = 1.0e6
@@ -198,7 +199,9 @@ def _nearest_cuda(query: torch.Tensor, tgt: torch.Tensor,
     already far away).  A 2-D operand beside a 3-D one is broadcast over
     the batch.  ``launch`` overrides :func:`plan` for the card's SM count.
     Counts one call under ``single`` (both 2-D) or ``batched``; with S > 1
-    the call is two launches, the split kernel and the merge."""
+    the call is two launches, the split kernel and the merge.  Adds the
+    call's ``b·m·n`` pairs to the ``prof`` counter ``nn_pairs`` and the
+    bytes its operands and results need to ``nn_bytes``."""
     for name, x in (("query", query), ("target", tgt)):
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -244,6 +247,9 @@ def _nearest_cuda(query: torch.Tensor, tgt: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"nn_search kernel launch failed: CUDA error {rc}")
     launches["batched" if batched else "single"] += 1
+    prof.count("nn_pairs", b * m * n)
+    # each query and target read once (12 B), d² and idx written (8 B)
+    prof.count("nn_bytes", b * (12 * (m + n) + 8 * m))
     if batched:
         return d2, idx
     return d2[0], idx[0]

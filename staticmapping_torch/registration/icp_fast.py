@@ -21,7 +21,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from ..common import se3
+from ..common import prof, se3
 from ..common.trips import TripCounter
 from ..data.cloud import PointCloud, NormalCloud
 from ..ops import nn_search
@@ -262,7 +262,10 @@ def align_point_to_plane(
             for _ in range(min(_WHILE_CHECK_EVERY, max_iteration - trips)):
                 state = frozen_body(state)
                 trips += 1
-            if bool(state.converged.all()):
+            with prof.block("Icp:converged_read"):
+                prof.count("host_reads")
+                done = bool(state.converged.all())
+            if done:
                 break
     _trips[form].add(trips * nb, state.it)
 

@@ -19,7 +19,6 @@ def _port_sources():
              os.path.join(ROOT, "scripts", "main_path.py"),
              os.path.join(ROOT, "scripts", "backend_path_frames.py"),
              os.path.join(ROOT, "scripts", "nn_kernel_times.py"),
-             os.path.join(ROOT, "scripts", "profile_main_path.py"),
              os.path.join(ROOT, "scripts", "torch_cli_ate.py"),
              os.path.join(ROOT, "scripts", "torch_matcher_ate.py"),
              os.path.join(ROOT, "scripts", "torch_sensor_ate.py"),
