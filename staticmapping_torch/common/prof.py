@@ -21,8 +21,9 @@ run up to it; the program wraps each such read on the hot path in a block
 whose name ends in ``_read`` and counts it under ``host_reads``.
 
 Disabled by default: :func:`block` is then one check returning a shared
-no-op context manager, and :func:`count` one check.  Enable with
-:func:`enable` or the CLI ``--profile`` flag.
+no-op context manager, and :func:`count` two (the first for an open
+:func:`tally`).  Enable with :func:`enable` or the CLI ``--profile``
+flag.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import atexit
 import itertools
 import threading
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 # spans kept between resets; blocks past it still add to stats()
@@ -57,6 +58,7 @@ _ids = itertools.count()           # span ids in entry order
 _closed: List[tuple] = []
 _sums: Dict[str, List[float]] = {}        # name -> [count, sum, min, max]
 _counters: Dict[str, int] = {}
+_tallies: Dict[int, Dict[str, int]] = {}  # thread ident -> held counts
 
 
 def enable(report_at_exit: bool = True) -> None:
@@ -137,11 +139,33 @@ def block(name: str, req: Optional[int] = None):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name``."""
+    """Add ``n`` to the counter ``name``, or to the calling thread's
+    :func:`tally` where one is open."""
+    if _tallies:
+        held = _tallies.get(threading.get_ident())
+        if held is not None:
+            held[name] = held.get(name, 0) + n
+            return
     if not _enabled:
         return
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
+
+
+@contextmanager
+def tally():
+    """``with prof.tally() as held: ...`` — the counts this thread makes
+    inside go to the dict ``held``, enabled or not, and not to
+    :func:`counters`.  A CUDA graph's capture runs the host code of work
+    that runs later, once a replay: its counts are held back at the
+    capture and added at each replay."""
+    me = threading.get_ident()
+    held: Dict[str, int] = {}
+    _tallies[me] = held
+    try:
+        yield held
+    finally:
+        del _tallies[me]
 
 
 def spans() -> List[Span]:

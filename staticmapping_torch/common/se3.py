@@ -19,7 +19,10 @@ _EPS = 1e-12
 # ---------------------------------------------------------------------------
 
 def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
-    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+    """``[1, 0, 0, 0]``, made on the device: ``torch.tensor`` of a list
+    would copy it from the host and wait for the copy, which a CUDA
+    graph cannot capture."""
+    return torch.eye(1, 4, dtype=dtype, device=device)[0]
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:

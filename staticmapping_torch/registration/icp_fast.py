@@ -13,11 +13,19 @@ A batch axis is written into every step (the JAX package vmaps instead):
 ``align_point_to_plane`` takes one pair or ``B`` pairs, and each pair
 freezes on its own ``converged`` flag.  ``IcpFast`` is the stateful
 matcher of the factory's type 6.
+
+On a CUDA device the trips between two host checks of ``converged`` (all
+of the fixed form's trips) replay as one CUDA graph from the second call
+with the same shapes and options on (:class:`_TripBlock`,
+:func:`_block_for`): the same kernels, the 1-NN kernel among them, with
+one launch in place of a few hundred a trip.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple
+import functools
+from collections import OrderedDict
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -88,6 +96,236 @@ def target_spacing(target: NormalCloud, tile: int = 1024) -> torch.Tensor:
     return nn_search.masked_quantile(second, target.mask, 0.5)
 
 
+class _IcpInputs(NamedTuple):
+    """What a trip reads besides its state."""
+    src0: torch.Tensor              # [B, N, 3] source moved by T_init
+    src_mask: torch.Tensor          # [B, N] bool
+    factor: Optional[torch.Tensor]  # [B, N] compensation shares, or None
+    # the demeaned target, _FAR where masked, ++ its normals: [B, M, 6],
+    # [M, 6] for one pair
+    payload_q: torch.Tensor
+    tmask_q: torch.Tensor           # [B, M] | [M] bool
+    spacing: Optional[torch.Tensor]  # [B] target spacing, or None
+
+    @property
+    def tgt_q(self) -> torch.Tensor:
+        return self.payload_q[..., :3]
+
+
+class _TripOptions(NamedTuple):
+    batched: bool
+    compensation: bool
+    exact_quantile: bool
+    dist_outlier_ratio: float
+    score_spacing_ref: float
+
+
+def _trip(x: _IcpInputs, o: _TripOptions, state: _IcpState) -> _IcpState:
+    """One ICP trip from ``state``."""
+    f32 = torch.float32
+    dev = x.src0.device
+    # step 0: move source by current iterate, or by each point's share of it
+    if o.compensation:
+        q_iter = se3.matrix_to_quat(se3.rotation(state.T_iter))
+        qi = se3.quat_identity(f32, dev).expand(q_iter.shape)
+        f = x.factor[..., None]                               # [B, N, 1]
+        q_pp = se3.slerp(qi[:, None, :], q_iter[:, None, :], f)
+        step_pts = (se3.quat_rotate(q_pp, x.src0)
+                    + se3.translation(state.T_iter)[:, None, :] * f)
+    else:
+        step_pts = se3.apply(state.T_iter, x.src0)
+
+    # step 1: correspondences (FindClosests, cc:169-180); the kernel's d² is
+    # selection-grade, so recompute it exactly from the match
+    query = step_pts if o.batched else step_pts[0]
+    _, _, sel = nn_search.nearest_select(query, x.tgt_q, x.tmask_q,
+                                         x.payload_q)
+    if not o.batched:
+        sel = sel[None]
+    q_pts = sel[..., :3]            # matched target points (demeaned)
+    nrm = sel[..., 3:6]
+    diff = step_pts - q_pts
+    d2 = torch.sum(diff * diff, dim=-1)
+    d2 = torch.where(x.src_mask, d2, float("inf"))
+
+    # step 2: trimmed outlier rejection (cc:496-498), by the sorted quantile
+    # or the bisection's upper bound of it
+    if o.exact_quantile:
+        limit = nn_search.masked_quantile(d2, x.src_mask,
+                                          o.dist_outlier_ratio)
+    else:
+        limit = nn_search.masked_quantile_fast(d2, x.src_mask,
+                                               o.dist_outlier_ratio)
+    w = ((d2 <= limit[:, None]) & x.src_mask).to(f32)
+
+    # step 3: point-to-plane normal equations (ComputePointToPlane)
+    cross = torch.linalg.cross(step_pts, nrm, dim=-1)
+    F = torch.cat([cross, nrm], dim=-1)                       # [B, N, 6]
+    if o.compensation:
+        F = F * x.factor[..., None]
+    wF = F * w[..., None]
+    A = wF.transpose(-1, -2) @ F                              # [B, 6, 6]
+    dot = torch.sum(diff * nrm, dim=-1)
+    b = -(wF.transpose(-1, -2) @ dot[..., None])[..., 0]      # [B, 6]
+    dx = _solve6(A, b)
+
+    # rotation from angle-axis dx[:3], translation dx[3:] (cc:300-312)
+    dT = se3.from_rt(se3.axis_angle_to_matrix(dx[:, :3]), dx[:, 3:])
+    T_iter = dT @ state.T_iter
+
+    # step 4: convergence bookkeeping (CheckConvergence, cc:377-405)
+    qs = torch.cat([state.quats[:, 1:],
+                    se3.matrix_to_quat(se3.rotation(T_iter))[:, None]], 1)
+    ts = torch.cat([state.trans[:, 1:],
+                    se3.translation(T_iter)[:, None]], 1)
+    it = state.it + 1
+    rot_d = torch.mean(se3.quat_angular_distance(
+        qs[:, -_SMOOTH:], qs[:, -_SMOOTH - 1:-1]), dim=-1)
+    trans_d = torch.mean(torch.linalg.vector_norm(
+        ts[:, -_SMOOTH:] - ts[:, -_SMOOTH - 1:-1], dim=-1), dim=-1)
+    # the reference needs > kSmoothLength history entries to check
+    converged = ((it >= _SMOOTH + 1) & (rot_d < _CONV_ROT)
+                 & (trans_d < _CONV_TRANS))
+
+    # score over kept matches (cc:516-521); a select, not a product with w,
+    # because masked slots hold d2 = inf and inf * 0 is NaN
+    kept = torch.clamp_min(torch.sum(w, dim=-1), 1.0)
+    dist = torch.sqrt(torch.clamp_min(d2, 0.0))
+    avg_dist = torch.sum(torch.where(w > 0, dist, 0.0), dim=-1) / kept
+    if x.spacing is not None:
+        avg_dist = avg_dist * (o.score_spacing_ref / x.spacing)
+    score = torch.exp(-avg_dist)
+    return _IcpState(T_iter, qs, ts, it, converged, score)
+
+
+def _frozen_trip(x: _IcpInputs, o: _TripOptions,
+                 state: _IcpState) -> _IcpState:
+    """A trip that leaves each converged pair's state as it was."""
+    new = _trip(x, o, state)
+    c = state.converged
+    return _IcpState(*(
+        torch.where(c.reshape(c.shape + (1,) * (old.dim() - 1)), old, nw)
+        for old, nw in zip(state, new)))
+
+
+class _TripBlock:
+    """``trips`` frozen trips over static buffers.  :meth:`load` copies a
+    call's inputs and initial state into the buffers, and each :meth:`run`
+    advances :attr:`state` in place.  Once :meth:`capture` has recorded
+    the trips as a CUDA graph, a run replays it: one launch in place of a
+    few hundred a trip.  Before that, and off CUDA, a run issues the same
+    operations one by one on the same buffers."""
+
+    def __init__(self, x: _IcpInputs, o: _TripOptions, state: _IcpState,
+                 trips: int):
+        self.o, self.trips = o, trips
+        self.x = _IcpInputs(*(None if t is None else torch.empty_like(t)
+                              for t in x))
+        self.state = _IcpState(*(torch.empty_like(t) for t in state))
+        self.graph = None
+        # what one run adds to the nn_search launches and prof counters
+        self.launches: Dict[str, int] = {}
+        self.counted: Dict[str, int] = {}
+
+    def load(self, x: _IcpInputs, state: _IcpState) -> None:
+        for buf, t in zip(self.x, x):
+            if buf is not None:
+                buf.copy_(t)
+        self.set_state(state)
+
+    def set_state(self, state: _IcpState) -> None:
+        for buf, t in zip(self.state, state):
+            buf.copy_(t)
+
+    def _issue_trips(self) -> None:
+        state = self.state
+        for _ in range(self.trips):
+            state = _frozen_trip(self.x, self.o, state)
+        self.set_state(state)
+
+    def run(self) -> _IcpState:
+        if self.graph is None:
+            self._issue_trips()
+            return self.state
+        self.graph.replay()
+        for k, n in self.launches.items():
+            nn_search.launches[k] += n
+        for name, n in self.counted.items():
+            prof.count(name, n)
+        prof.count("icp_graph_trips", self.trips * self.state.it.shape[0])
+        return self.state
+
+    def capture(self) -> None:
+        """Record the trips as a CUDA graph on a side stream.  Nothing runs
+        at the capture, so the launches and counts its host code makes are
+        held back and added at each replay instead.  The capture mode is
+        thread-local: the front end's stage thread keeps copying while the
+        trips are recorded."""
+        dev = self.state.T_iter.device
+        stream = _capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        before = dict(nn_search.launches)
+        graph = torch.cuda.CUDAGraph()
+        # cuBLAS keeps a workspace for each stream it ran on.  Cleared
+        # before, the capture stream's comes from the graph's own pool,
+        # which keeps it for the replays; cleared after, no reference
+        # holds it as allocated memory (as torch's cudagraph trees do)
+        torch._C._cuda_clearCublasWorkspaces()
+        with prof.tally() as held, torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._issue_trips()
+            finally:
+                graph.capture_end()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.launches = {k: n - before[k]
+                         for k, n in nn_search.launches.items()}
+        nn_search.launches.update(before)
+        self.counted = held
+        self.graph = graph
+        prof.count("icp_graph_captures")
+
+
+# a key's block, once captured (most recently used last), and the keys
+# seen once: a key is captured at its second call, so a shape that comes
+# once never pays for a capture
+_MAX_BLOCKS = 8
+_blocks: "OrderedDict[tuple, _TripBlock]" = OrderedDict()
+_seen: set = set()
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    return torch.cuda.Stream(device)
+
+
+def _block_for(x: _IcpInputs, o: _TripOptions, init: _IcpState,
+               trips: int) -> Optional[_TripBlock]:
+    """The graph-captured block of ``trips`` trips for these shapes, loaded
+    with ``x`` and ``init``; None for CPU tensors and at a key's first
+    call."""
+    if not x.src0.is_cuda:
+        return None
+    key = (x.src0.device, x.src0.shape, x.payload_q.shape, o, trips)
+    block = _blocks.pop(key, None)
+    if block is None and key not in _seen:
+        if len(_seen) > 1024:
+            _seen.clear()
+        _seen.add(key)
+        return None
+    if block is None:
+        block = _TripBlock(x, o, init, trips)
+        block.load(x, init)
+        block.capture()
+        if len(_blocks) >= _MAX_BLOCKS:
+            _blocks.popitem(last=False)
+    else:
+        block.load(x, init)
+    _blocks[key] = block
+    return block
+
+
 def align_point_to_plane(
     source: PointCloud,
     target: NormalCloud,
@@ -113,6 +351,11 @@ def align_point_to_plane(
     Otherwise the while form runs up to ``max_iteration`` trips, stopping
     once every pair converged; it checks on the host every few trips and
     returns the same result as checking every trip.
+
+    On a CUDA device the trips replay as CUDA graphs from the second call
+    with the same shapes and options on (module note); the first call, a
+    block cut short by ``max_iteration`` and CPU tensors run them one
+    operation at a time.
 
     ``score_spacing_ref > 0`` reports the density-normalized fitness
     ``exp(−avg_dist · ref / target_spacing)``; 0 keeps the raw
@@ -148,8 +391,6 @@ def align_point_to_plane(
     eye3 = torch.eye(3, dtype=f32, device=dev).expand(nb, 3, 3)
     T_mean = se3.from_rt(eye3, tgt_mean)
     T_init = se3.inverse(T_mean) @ guess
-    src0 = se3.apply(T_init, source.xyz)
-    src_mask = source.mask
 
     if score_spacing_ref > 0.0:
         spacing = torch.stack([
@@ -158,91 +399,13 @@ def align_point_to_plane(
         spacing = None
 
     # unbatched pairs go through the kernel's single-pair entry
-    if batched:
-        tgt_q, tmask_q, payload_q = tgt_pts, tmask, tgt_payload
-    else:
-        tgt_q, tmask_q, payload_q = tgt_pts[0], tmask[0], tgt_payload[0]
-
-    def body(state: _IcpState) -> _IcpState:
-        # step 0: move source by current iterate, or by each point's share
-        # of it
-        if compensation:
-            q_iter = se3.matrix_to_quat(se3.rotation(state.T_iter))
-            qi = se3.quat_identity(f32, dev).expand(q_iter.shape)
-            f = source.factor[..., None]                      # [B, N, 1]
-            q_pp = se3.slerp(qi[:, None, :], q_iter[:, None, :], f)
-            step_pts = (se3.quat_rotate(q_pp, src0)
-                        + se3.translation(state.T_iter)[:, None, :] * f)
-        else:
-            step_pts = se3.apply(state.T_iter, src0)
-
-        # step 1: correspondences (FindClosests, cc:169-180); the kernel's
-        # d² is selection-grade, so recompute it exactly from the match
-        query = step_pts if batched else step_pts[0]
-        _, _, sel = nn_search.nearest_select(query, tgt_q, tmask_q, payload_q)
-        if not batched:
-            sel = sel[None]
-        q_pts = sel[..., :3]            # matched target points (demeaned)
-        nrm = sel[..., 3:6]
-        diff = step_pts - q_pts
-        d2 = torch.sum(diff * diff, dim=-1)
-        d2 = torch.where(src_mask, d2, float("inf"))
-
-        # step 2: trimmed outlier rejection (cc:496-498), by the sorted
-        # quantile or the bisection's upper bound of it
-        if exact_quantile:
-            limit = nn_search.masked_quantile(d2, src_mask,
-                                              dist_outlier_ratio)
-        else:
-            limit = nn_search.masked_quantile_fast(d2, src_mask,
-                                                   dist_outlier_ratio)
-        w = ((d2 <= limit[:, None]) & src_mask).to(f32)
-
-        # step 3: point-to-plane normal equations (ComputePointToPlane)
-        cross = torch.linalg.cross(step_pts, nrm, dim=-1)
-        F = torch.cat([cross, nrm], dim=-1)                   # [B, N, 6]
-        if compensation:
-            F = F * source.factor[..., None]
-        wF = F * w[..., None]
-        A = wF.transpose(-1, -2) @ F                          # [B, 6, 6]
-        dot = torch.sum(diff * nrm, dim=-1)
-        b = -(wF.transpose(-1, -2) @ dot[..., None])[..., 0]  # [B, 6]
-        x = _solve6(A, b)
-
-        # rotation from angle-axis x[:3], translation x[3:] (cc:300-312)
-        dT = se3.from_rt(se3.axis_angle_to_matrix(x[:, :3]), x[:, 3:])
-        T_iter = dT @ state.T_iter
-
-        # step 4: convergence bookkeeping (CheckConvergence, cc:377-405)
-        qs = torch.cat([state.quats[:, 1:],
-                        se3.matrix_to_quat(se3.rotation(T_iter))[:, None]], 1)
-        ts = torch.cat([state.trans[:, 1:],
-                        se3.translation(T_iter)[:, None]], 1)
-        it = state.it + 1
-        rot_d = torch.mean(se3.quat_angular_distance(
-            qs[:, -_SMOOTH:], qs[:, -_SMOOTH - 1:-1]), dim=-1)
-        trans_d = torch.mean(torch.linalg.vector_norm(
-            ts[:, -_SMOOTH:] - ts[:, -_SMOOTH - 1:-1], dim=-1), dim=-1)
-        # the reference needs > kSmoothLength history entries to check
-        converged = ((it >= _SMOOTH + 1) & (rot_d < _CONV_ROT)
-                     & (trans_d < _CONV_TRANS))
-
-        # score over kept matches (cc:516-521); a select, not a product
-        # with w, because masked slots hold d2 = inf and inf * 0 is NaN
-        kept = torch.clamp_min(torch.sum(w, dim=-1), 1.0)
-        dist = torch.sqrt(torch.clamp_min(d2, 0.0))
-        avg_dist = torch.sum(torch.where(w > 0, dist, 0.0), dim=-1) / kept
-        if spacing is not None:
-            avg_dist = avg_dist * (score_spacing_ref / spacing)
-        score = torch.exp(-avg_dist)
-        return _IcpState(T_iter, qs, ts, it, converged, score)
-
-    def frozen_body(state: _IcpState) -> _IcpState:
-        new = body(state)
-        c = state.converged
-        return _IcpState(*(
-            torch.where(c.reshape((nb,) + (1,) * (o.dim() - 1)), o, nw)
-            for o, nw in zip(state, new)))
+    x = _IcpInputs(
+        se3.apply(T_init, source.xyz), source.mask,
+        source.factor if compensation else None,
+        tgt_payload if batched else tgt_payload[0],
+        tmask if batched else tmask[0], spacing)
+    o = _TripOptions(batched, compensation, exact_quantile,
+                     float(dist_outlier_ratio), float(score_spacing_ref))
 
     init = _IcpState(
         torch.eye(4, dtype=f32, device=dev).expand(nb, 4, 4).clone(),
@@ -251,17 +414,29 @@ def align_point_to_plane(
         torch.zeros((nb,), dtype=torch.int32, device=dev),
         torch.zeros((nb,), dtype=torch.bool, device=dev),
         torch.zeros((nb,), dtype=f32, device=dev))
-    state = init
     if fixed_iterations > 0:
-        form, trips = "fixed", fixed_iterations
-        for _ in range(fixed_iterations):
-            state = frozen_body(state)
+        form, per_block = "fixed", fixed_iterations
     else:
-        form, trips = "while", 0
+        form, per_block = "while", min(_WHILE_CHECK_EVERY, max_iteration)
+    block = _block_for(x, o, init, per_block)
+
+    def advance(state: _IcpState, n: int) -> _IcpState:
+        if block is not None and n == block.trips:
+            return block.run()
+        for _ in range(n):
+            state = _frozen_trip(x, o, state)
+        return state
+
+    state = init if block is None else block.state
+    if fixed_iterations > 0:
+        trips = fixed_iterations
+        state = advance(state, trips)
+    else:
+        trips = 0
         while trips < max_iteration:
-            for _ in range(min(_WHILE_CHECK_EVERY, max_iteration - trips)):
-                state = frozen_body(state)
-                trips += 1
+            n = min(_WHILE_CHECK_EVERY, max_iteration - trips)
+            state = advance(state, n)
+            trips += n
             with prof.block("Icp:converged_read"):
                 prof.count("host_reads")
                 done = bool(state.converged.all())
@@ -271,12 +446,14 @@ def align_point_to_plane(
 
     result = T_mean @ state.T_iter @ T_init
     score, it = state.score, state.it
+    if block is not None:
+        # the block's buffers are the next call's
+        score, it = score.clone(), it.clone()
     if not batched:
         result, score, it = result[0], score[0], it[0]
     if return_aux:
         return result, score, it
     return result, score
-
 
 
 @dataclasses.dataclass

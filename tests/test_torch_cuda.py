@@ -262,6 +262,61 @@ def test_small_main_path_launches_both_entries(cuda_device, tmp_path):
     assert len(poses) == len(mb.trajectory) and np.isfinite(poses).all()
 
 
+@pytest.mark.parametrize("nb,n,m,kw", [
+    (None, 32768, 8192, dict(max_iteration=100)),
+    (16, 16384, 8192, dict(fixed_iterations=10)),
+    (None, 8192, 4096, dict(max_iteration=40, compensation=True,
+                            exact_quantile=True, score_spacing_ref=0.35)),
+], ids=["front_end", "pair_batch", "compensated_exact_spacing"])
+def test_icp_blocks_replay_as_the_eager_loop(cuda_device, monkeypatch, nb,
+                                            n, m, kw):
+    """The point-to-plane ICP at a front-end shape (while form), a pair
+    batch's (fixed form) and with every option a trip reads: the first call runs one operation at a time, the
+    second captures its block of trips as a CUDA graph, and the second and
+    third replay it.  Each replayed call returns what the eager loop
+    returns on the same inputs, bit for bit, and counts the same kernel
+    launches, 1-NN pairs and bytes, host reads and trips; the key is
+    captured once."""
+    from staticmapping_torch.common import prof
+    from staticmapping_torch.registration import icp_fast as ticp
+    from torch_icp_pairs import plane_pair
+
+    pairs = [plane_pair(seed, nb, n, m, cuda_device) for seed in (31, 32, 33)]
+    form = "fixed" if kw.get("fixed_iterations") else "while"
+
+    def run(p):
+        ticp.reset_trips()
+        tnn.reset_launches()
+        prof.reset()
+        out = ticp.align_point_to_plane(*p, return_aux=True, **kw)
+        torch.cuda.synchronize()
+        return out, dict(tnn.launches), prof.counters(), ticp.trip_counts()
+
+    ticp._blocks.clear()
+    ticp._seen.clear()
+    prof.enable(report_at_exit=False)
+    try:
+        first = run(pairs[0])
+        replayed = [run(p) for p in pairs[1:]]
+        monkeypatch.setattr(ticp, "_block_for", lambda *args: None)
+        eager = [run(p) for p in pairs[1:]]
+    finally:
+        prof.disable()
+        prof.reset()
+        ticp._blocks.clear()
+    assert first[2].get("icp_graph_trips", 0) == 0
+    assert [r[2].get("icp_graph_captures", 0) for r in replayed] == [1, 0]
+    for got, want in zip(replayed, eager):
+        for a, b in zip(got[0], want[0]):
+            assert torch.equal(a, b)
+        assert got[1] == want[1] and got[3] == want[3]
+        for name in ("nn_pairs", "nn_bytes"):
+            assert got[2][name] == want[2][name] > 0
+        assert got[2].get("host_reads") == want[2].get("host_reads")
+        assert got[2]["icp_graph_trips"] == got[3][form]["run"] > 0
+        assert "icp_graph_trips" not in want[2]
+
+
 # ---------------------------------------------------------------------------
 # the NN variants (K3, K4)
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Parity of the PyTorch port's point-to-plane ICP
 (staticmapping_torch.registration.icp_fast) with the JAX package, on the
 CPU: both trip forms on one pair, and the batched fixed-trip form against
-the JAX package's vmapped one."""
+the JAX package's vmapped one; and the trips run over a block's static
+buffers against a fresh call."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,8 +15,10 @@ from staticmapping_tpu.io import synthetic
 from staticmapping_tpu.ops.normals import estimate_normals
 from staticmapping_tpu.registration import icp_fast as jicp
 from staticmapping_torch import interop
+from staticmapping_torch.common import prof
 from staticmapping_torch.data import cloud as tcloud
 from staticmapping_torch.registration import icp_fast as ticp
+from torch_icp_pairs import plane_pair
 
 CPU = "cpu"
 CAP = 4096
@@ -140,3 +143,46 @@ def test_solve6_zeroes_nonfinite_systems():
         x_j = np.asarray(jicp._solve6(jnp.asarray(A[k]), jnp.asarray(b[k])))
         np.testing.assert_allclose(x_t[k], x_j, rtol=1e-3, atol=1e-4)
     assert np.all(x_t[1] == 0.0)
+
+
+@pytest.mark.parametrize("nb,kw", [
+    (None, dict(max_iteration=6)),                  # a block, then a tail
+    (3, dict(fixed_iterations=6, score_spacing_ref=0.35)),
+    (None, dict(max_iteration=8, compensation=True, exact_quantile=True)),
+], ids=["while", "fixed_batched", "while_compensated"])
+def test_block_over_static_buffers_matches_fresh_calls(monkeypatch, nb, kw):
+    """The CUDA graph's block run on the CPU, one operation at a time: two
+    calls loaded into the same buffers each return what a fresh call
+    returns, bit for bit, and neither path counts a replayed trip."""
+    pairs = [plane_pair(seed, nb, 1500, 700) for seed in (21, 22)]
+    prof.reset()
+    prof.enable(report_at_exit=False)
+    try:
+        fresh = [ticp.align_point_to_plane(*p, tile=256, return_aux=True,
+                                           **kw) for p in pairs]
+        made = []
+
+        def cpu_block(x, o, init, trips):
+            if not made:
+                made.append(ticp._TripBlock(x, o, init, trips))
+            made[0].load(x, init)
+            return made[0]
+
+        monkeypatch.setattr(ticp, "_block_for", cpu_block)
+        buffers = None
+        for p, want in zip(pairs, fresh):
+            got = ticp.align_point_to_plane(*p, tile=256, return_aux=True,
+                                            **kw)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            ptrs = [t.data_ptr() for t in made[0].x + made[0].state
+                    if t is not None]
+            assert buffers in (None, ptrs)
+            buffers = ptrs
+        counters = prof.counters()
+    finally:
+        prof.disable()
+        prof.reset()
+    assert made[0].graph is None
+    assert counters.get("icp_graph_trips", 0) == 0
+    assert counters.get("icp_graph_captures", 0) == 0

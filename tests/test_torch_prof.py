@@ -151,3 +151,27 @@ def test_clock_pair_reads_both_clocks_together():
     p2, w2 = time.perf_counter_ns(), time.time_ns()
     # both clocks moved by the same few microseconds since the pair
     assert 0 <= p2 - p < 1e8 and abs((w2 - w) - (p2 - p)) < 1e6
+
+
+def test_tally_holds_back_its_threads_counts(enabled):
+    """Counts made inside a tally go to it, not to the counters; another
+    thread's counts meanwhile are counted as usual."""
+    prof.count("a", 1)
+    with prof.tally() as held:
+        prof.count("a", 2)
+        prof.count("b")
+        other = threading.Thread(target=prof.count, args=("a", 5))
+        other.start()
+        other.join()
+    prof.count("a", 3)
+    assert held == {"a": 2, "b": 1}
+    assert prof.counters() == {"a": 9}
+
+
+def test_tally_holds_counts_while_disabled():
+    prof.reset()
+    with prof.tally() as held:
+        prof.count("x", 4)
+    prof.count("x", 1)
+    assert held == {"x": 4}
+    assert prof.counters() == {}
