@@ -29,10 +29,34 @@ seed it compares:
 The reference follows the program step by step from the program's own
 poses; it reads them, and the answers it judges, and nothing else the
 program made.
+
+A cell may bring output checks of its own: its cell file names them
+(``"checks": [<name>, ...]``), and each is a module
+``mapbench/checks/<name>.py`` (``manifest.checks``).  It imports nothing
+of the program; its reference comes from ``mapbench/reference/``.
+``drive.run_cell`` calls, for each:
+
+- ``collect(mb, period)`` once the window has closed, right after
+  ``drive.program_outputs`` and before the front end is closed and the
+  builder freed: it reads attributes of the builder ``mb`` (``period``:
+  seconds between scans, a scan's index being its stamp over it) and
+  returns host data only (numpy arrays, numbers);
+- ``numbers(data, run)`` once the builder is freed and the core numbers
+  are taken, under :func:`full_float32`: ``data`` is what ``collect``
+  returned, ``run`` the object :func:`run_of` makes; it returns
+  ``{name: number}``.
+
+``control.control_numbers`` calls ``control(run)`` where the module gives
+it: the module's numbers for the control's answers (the reference put in
+the program's place, in TF32), ``run.outputs`` holding the drive's true
+poses as the core control's do.  Every number, the core's and the cell's
+own, is judged by :func:`judge` against the cell's ``limits``; a name
+that two sources give stops the run (:func:`merge`).
 """
 from __future__ import annotations
 
 import contextlib
+import types
 
 import numpy as np
 import torch
@@ -138,6 +162,33 @@ def gaps(scans, frames: dict, submaps: list, fe, pm, rcfg: dict, device,
         out["frontend_gap_mm"] = max(fe_gap)
     if sc_gap:
         out["pair_score_gap"] = max(sc_gap)
+    return out
+
+
+def run_of(scans, outputs: dict, window, lag: int, pending: int,
+           config: dict, cell: dict, seed: int, device):
+    """What a cell's own check reads besides its collected data: the
+    scans as the benchmark made them, ``drive.program_outputs``' dict, the
+    window's first and past-last scan index, the window's last ``lag``
+    scans not harvested at its close, the newest ``pending`` submaps that
+    may still wait for their match, the configuration and cell files, the
+    seed and the device."""
+    return types.SimpleNamespace(
+        scans=scans, outputs=outputs, window=window, lag=lag,
+        pending=pending, config=config, cell=cell, seed=seed, device=device)
+
+
+def merge(sources: dict) -> dict:
+    """The numbers of every source (``{source: {name: number}}``: the
+    core check's, each of the cell's own checks') in one dict; a name that
+    two sources give is an error that names both."""
+    out, origin = {}, {}
+    for source, numbers in sources.items():
+        for name, v in numbers.items():
+            if name in origin:
+                raise ValueError(f"check number {name!r} comes from both "
+                                 f"{origin[name]} and {source}")
+            out[name], origin[name] = v, source
     return out
 
 

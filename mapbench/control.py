@@ -9,8 +9,9 @@ For each seed it draws the cell's drive, samples the window's scans and
 submaps as a run's check does (the window's size from ``--seconds``; the
 start of each step from the drive's true poses, as the program is not
 run), and prints, as one JSON line a seed, the numbers the check compares
-for the control's answers, beside the cell's limits.  The benchmark's
-runs do not run it.
+for the control's answers, beside the cell's limits: the core check's,
+and those of each of the cell's own checks that gives a ``control``
+(``check.py``).  The benchmark's runs do not run it.
 """
 from __future__ import annotations
 
@@ -46,6 +47,16 @@ def control_numbers(bench: dict, workload: str, seed: int, seconds: float,
                                       submaps, 2 * chunk, pending, cell)
     numbers = check.gaps(scans, frames, submaps, fe, pm, config["reference"],
                          device, control=True)
+    own = {name: m for name, m in manifest.checks(cell, root).items()
+           if hasattr(m, "control")}
+    if own:
+        run = check.run_of(scans, {"frames": frames, "submaps": submaps},
+                           (warm, warm + n_window), 2 * chunk, pending,
+                           config, cell, seed, device)
+        with check.full_float32():
+            numbers = check.merge({"check.py": numbers, **{
+                f"checks/{name}": m.control(run)
+                for name, m in own.items()}})
     return {"workload": workload, "seed": seed, "numbers": numbers,
             "limits": cell["limits"], "frontend_items": fe,
             "pair_items": pm}

@@ -114,6 +114,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     ``time.perf_counter``'s clock."""
     parts = manifest.cell(bench, workload, root)
     config, traffic, cell = parts["config"], parts["traffic"], parts["cell"]
+    own = manifest.checks(cell, root)
     chunk = config["settings"]["map_builder.pipeline_chunk"]
     warm = traffic["warmup_scans"]
     if (warm - 1) % chunk:
@@ -198,6 +199,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
 
     out = program_outputs(mb, period)
+    collected = {name: m.collect(mb, period) for name, m in own.items()}
     pending = 2 * config["settings"]["map_builder.pair_match_batch"] + 1
     close = getattr(mb.front_end, "close", None)
     if close is not None:
@@ -216,6 +218,13 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
                "missing_pair_matches": missing_pm}
     numbers.update(check.gaps(scans, out["frames"], out["submaps"], fe, pm,
                               config["reference"], device))
+    if own:
+        run = check.run_of(scans, out, (warm, warm + n_window), 2 * chunk,
+                           pending, config, cell, seed, device)
+        with check.full_float32():
+            numbers = check.merge({"check.py": numbers, **{
+                f"checks/{name}": m.numbers(collected[name], run)
+                for name, m in own.items()}})
     correct, checks = check.judge(numbers, cell["limits"])
     res = {"correct": correct, "attempted": n_window,
            "failed": numbers["missing_keyframes"], "metrics": metrics,

@@ -8,19 +8,26 @@ mix.  The harness finds:
 - ``mapbench/traffic/<traffic>.json``: the mix's parameters, read by the
   one generator (``generator.py``);
 - ``mapbench/cells/<workload>.json``: the cell's window size and the
-  limits of its output check;
+  limits of its output check, and optionally ``"checks": [<name>, ...]``,
+  the cell's own output checks;
+- ``mapbench/checks/<name>.py``: one such check, found under the same
+  root as the cell file (``checks``).  It gives ``collect(mb, period)``,
+  ``numbers(data, run)`` and optionally ``control(run)``; ``check.py``
+  says what each gets and when it is called;
 - ``mapbench/metrics/<metric>.py``: one reader a metric, end-to-end or
   per-layer.
 
-Adding a configuration, a mix, a cell or a metric adds files and entries
-and edits none that is there.
+Adding a configuration, a mix, a cell, an output check or a metric adds
+files and entries and edits none that is there.
 """
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import json
 import os
 import re
+import sys
 from typing import Dict, List
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -34,9 +41,10 @@ def load(root: str = ROOT) -> dict:
         return json.load(f)
 
 
-def check_names(bench: dict) -> List[str]:
+def check_names(bench: dict, root: str = ROOT) -> List[str]:
     """What in ``bench`` breaks the naming rules: every name, config,
-    traffic and reduced key a name, every unit a unit, every ``why``,
+    traffic and reduced key a name, and each name in the ``checks`` of a
+    cell file under ``root``, every unit a unit, every ``why``,
     ``source`` and ``layer`` one line of at most 200 characters, no name
     twice."""
     bad = []
@@ -52,6 +60,15 @@ def check_names(bench: dict) -> List[str]:
     for w in bench.get("workloads", []):
         for key in ("name", "config", "traffic"):
             name(w.get(key), f"workloads.{key}")
+        path = os.path.join(root, "mapbench", "cells",
+                            f"{w.get('name')}.json")
+        if NAME_RE.match(str(w.get("name"))) and os.path.isfile(path):
+            with open(path) as f:
+                own = json.load(f).get("checks", [])
+            for n in own:
+                name(n, f"cells[{w['name']}].checks")
+            bad += [f"cells[{w['name']}].checks: {n!r} twice"
+                    for i, n in enumerate(own) if n in own[:i]]
     for group in ("end_to_end", "per_layer"):
         for m in bench.get(group, []):
             name(m.get("name"), group)
@@ -94,6 +111,30 @@ def cell(bench: dict, workload: str, root: str = ROOT) -> Dict[str, dict]:
             "config": _json("configs", w["config"], root),
             "traffic": _json("traffic", w["traffic"], root),
             "cell": _json("cells", workload, root)}
+
+
+def checks(cell: dict, root: str = ROOT) -> Dict[str, object]:
+    """The cell's own output checks by name: the module
+    ``mapbench/checks/<name>.py`` under ``root`` for each name in the cell
+    file's ``checks`` (none where it has no such key).  Dots and dashes of
+    a name are underscores in the file's name, as for a metric's reader."""
+    out = {}
+    for name in cell.get("checks", []):
+        if not (isinstance(name, str) and NAME_RE.match(name)):
+            raise ValueError(f"check {name!r} is not a name")
+        if name in out:
+            raise ValueError(f"check {name!r} named twice")
+        mod = name.replace(".", "_").replace("-", "_")
+        spec = importlib.util.spec_from_file_location(
+            f"mapbench.checks.{mod}",
+            os.path.join(root, "mapbench", "checks", mod + ".py"))
+        module = importlib.util.module_from_spec(spec)
+        # registered before it runs, as an import would, so that what
+        # looks a module up by name (dataclasses, pickle) finds it
+        sys.modules[spec.name] = module
+        spec.loader.exec_module(module)
+        out[name] = module
+    return out
 
 
 def metrics_of(bench: dict, workload: str, group: str) -> List[dict]:

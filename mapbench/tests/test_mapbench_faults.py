@@ -1,6 +1,7 @@
 """A run of a small cell on the CPU, the chip's look skipped, with the
 timed path broken underneath: the output check comes out not correct for
-each fault the cells can have, and correct with the path whole.
+each fault the cells can have, and correct with the path whole.  A cell's
+own output checks are judged with the core ones.
 
 The small cell is the VLP-16 configuration at fewer points a scan, 8-scan
 chunks and pair-match batches of 4, held to ``vlp16_straight``'s limits.
@@ -47,9 +48,9 @@ def small_root(tmp_path_factory):
     return root
 
 
-def _run(root):
-    return drive.run_cell(manifest.load(root), "small", SEED, 4.0, False,
-                          "cpu", time.perf_counter(), root)
+def _run(root, bench=None, workload="small"):
+    return drive.run_cell(bench or manifest.load(root), workload, SEED, 4.0,
+                          False, "cpu", time.perf_counter(), root)
 
 
 def _icp_returns_guess(monkeypatch):
@@ -126,3 +127,103 @@ def test_control_is_caught(small_root):
     assert not correct
     assert checks["frontend_gap_mm"]["value"] > checks[
         "frontend_gap_mm"]["limit"], checks
+
+
+OWN_CHECKS = {
+    # a number within its limit, read through what collect and run give
+    "own_window": ("def collect(mb, period):\n"
+                   "    return {'period': period}\n"
+                   "def numbers(data, run):\n"
+                   "    return {'own_window_scans': float(run.window[1]"
+                   " - run.window[0]) if data['period'] == 0.1 else -1.0}\n"),
+    # a number over its limit: the builder holds submaps
+    "own_over": ("def collect(mb, period):\n"
+                 "    return {'submaps': len(mb.trajectory)}\n"
+                 "def numbers(data, run):\n"
+                 "    return {'own_submaps': float(data['submaps'])}\n"),
+    # no number for its limit
+    "own_none": ("def collect(mb, period):\n"
+                 "    return {}\n"
+                 "def numbers(data, run):\n"
+                 "    return {}\n"),
+    # a number under a core check's name
+    "own_clash": ("def collect(mb, period):\n"
+                  "    return {}\n"
+                  "def numbers(data, run):\n"
+                  "    return {'frontend_gap_mm': 0.0}\n"),
+}
+OWN_CASES = {"over": (["own_window", "own_over"],
+                      {"own_window_scans": 48, "own_submaps": 0}),
+             "none": (["own_none"], {"own_none_number": 1e9}),
+             "clash": (["own_clash"], {})}
+
+
+def _own_cell(root, workload, sources, limits):
+    """The small cell, under the name ``workload``, naming the checks of
+    ``sources`` (name: module source) with ``limits`` added; its file and
+    the checks' are new files under ``root``.  The benchmark with it."""
+    os.makedirs(os.path.join(root, "mapbench", "checks"), exist_ok=True)
+    for name, source in sources.items():
+        with open(os.path.join(root, "mapbench", "checks", name + ".py"),
+                  "w") as f:
+            f.write(source)
+    bench = manifest.load(root)
+    cell = manifest.cell(bench, "small", root)["cell"]
+    cell = dict(cell, checks=list(sources),
+                limits=dict(cell["limits"], **limits))
+    with open(os.path.join(root, "mapbench", "cells", workload + ".json"),
+              "w") as f:
+        json.dump(cell, f)
+    bench["workloads"].append(dict(bench["workloads"][0], name=workload))
+    return bench
+
+
+@pytest.mark.parametrize("case", sorted(OWN_CASES))
+def test_own_check_is_judged(small_root, case):
+    """A cell's own check, a file under ``mapbench/checks/``: its number
+    over its limit reads not correct beside the limit, as does a limit
+    with no number, and a number under a core check's name stops the
+    run."""
+    names, limits = OWN_CASES[case]
+    workload = f"small_{case}"
+    bench = _own_cell(small_root, workload,
+                      {n: OWN_CHECKS[n] for n in names}, limits)
+    if case == "clash":
+        with pytest.raises(ValueError, match="check.py.*checks/own_clash"):
+            _run(small_root, bench, workload)
+        return
+    res = _run(small_root, bench, workload)
+    print(case, res["checks"])
+    assert not res["correct"]
+    checks = res["checks"]
+    core = ("frontend_gap_mm", "pair_score_gap", "missing_keyframes",
+            "missing_pair_matches")
+    assert all(checks[n]["value"] <= checks[n]["limit"] for n in core)
+    if case == "over":
+        assert checks["own_window_scans"] == {"value": 48.0, "limit": 48}
+        assert checks["own_submaps"]["value"] > 0
+    else:
+        assert checks["own_none_number"] == {"value": None, "limit": 1e9}
+
+
+def test_own_control_is_printed(small_root):
+    """The control prints the numbers of a cell's own check that gives a
+    ``control`` beside the core ones, with ``run`` as the check's own
+    numbers get it."""
+    from mapbench import control
+    bench = _own_cell(small_root, "small_control", {"own_control": (
+        "def collect(mb, period):\n"
+        "    return {}\n"
+        "def numbers(data, run):\n"
+        "    return {}\n"
+        "def control(run):\n"
+        "    return {'own_control_frames': float(len(run.outputs['frames'])),"
+        " 'own_control_window': float(run.window[0])}\n")}, {})
+    res = control.control_numbers(bench, "small_control", SEED, 4.0, "cpu",
+                                  small_root)
+    core = control.control_numbers(bench, "small", SEED, 4.0, "cpu",
+                                   small_root)
+    # the drive's 41 warm-up and 48 window scans, less the last two chunks
+    assert res["numbers"] == dict(core["numbers"],
+                                  own_control_frames=41 + 48 - 16,
+                                  own_control_window=41.0)

@@ -1,6 +1,7 @@
 """Nothing the benchmark runs imports JAX or the JAX package, and the
-reference imports nothing of the program; names compare by their whole
-top-level part (the port's name begins with the JAX package's)."""
+reference and a cell's own output checks import nothing of the program;
+names compare by their whole top-level part (the port's name begins with
+the JAX package's)."""
 import ast
 import os
 import subprocess
@@ -44,7 +45,7 @@ def test_no_jax(path):
     assert not set(_roots(path)) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", _sources("reference"),
+@pytest.mark.parametrize("path", _sources("reference") + _sources("checks"),
                          ids=lambda p: os.path.relpath(p, manifest.ROOT))
 def test_reference_imports_nothing_of_the_program(path):
     assert PROGRAM not in set(_roots(path))
@@ -61,7 +62,7 @@ def test_top_level_names_compare_whole():
 def test_harness_and_program_load_no_jax():
     probe = ("import sys\n"
              "import mapbench.run, mapbench.drive, mapbench.control\n"
-             "import mapbench.reference.mapping\n"
+             "import mapbench.reference.mapping, mapbench.checks\n"
              "import staticmapping_torch.config\n"
              "from mapbench import run\n"
              "print(run.forbidden_modules())\n")

@@ -1,6 +1,6 @@
 """BENCHMARK.json parses and keeps the naming rules, every name it gives
-leads to its file, and a new configuration, traffic mix, cell and metric
-are found with no edit to a file that is there."""
+leads to its file, and a new configuration, traffic mix, cell, output
+check and metric are found with no edit to a file that is there."""
 import hashlib
 import json
 import os
@@ -23,6 +23,8 @@ def test_every_name_leads_to_its_file():
         parts = manifest.cell(BENCH, w["name"], ROOT)
         assert parts["config"]["points_per_scan"] <= parts["config"][
             "settings"]["map_builder.front_end.scan_capacity"]
+        for m in manifest.checks(parts["cell"], ROOT).values():
+            assert callable(m.collect) and callable(m.numbers)
     for c in BENCH["configs"]:
         assert os.path.isfile(os.path.join(ROOT, c["file"]))
     for group in ("end_to_end", "per_layer"):
@@ -53,6 +55,18 @@ def _digest(root):
     return out
 
 
+DUMMY_CHECK = """from ..reference import mapping
+
+
+def collect(mb, period):
+    return {"scans": 3 * period}
+
+
+def numbers(data, run):
+    return {"dummy_number": data["scans"] + run.window[1] - run.window[0]}
+"""
+
+
 def test_new_config_traffic_cell_and_metric_need_no_edit(tmp_path):
     root = str(tmp_path)
     shutil.copytree(os.path.join(ROOT, "mapbench"),
@@ -65,7 +79,9 @@ def test_new_config_traffic_cell_and_metric_need_no_edit(tmp_path):
     files = {
         "configs/dummy_config.json": dict(cfg["config"], points_per_scan=7),
         "traffic/dummy_mix.json": dict(cfg["traffic"], step_m=0.7),
-        "cells/dummy_cell.json": dict(cfg["cell"], window_scans_per_s=1.0),
+        "cells/dummy_cell.json": dict(
+            cfg["cell"], window_scans_per_s=1.0, checks=["dummy_check"],
+            limits=dict(cfg["cell"]["limits"], dummy_number=10.0)),
     }
     for rel, body in files.items():
         with open(os.path.join(root, "mapbench", rel), "w") as f:
@@ -73,6 +89,9 @@ def test_new_config_traffic_cell_and_metric_need_no_edit(tmp_path):
     with open(os.path.join(root, "mapbench/metrics/dummy_metric.py"),
               "w") as f:
         f.write("def read(ctx):\n    return 42.0\n")
+    with open(os.path.join(root, "mapbench/checks/dummy_check.py"),
+              "w") as f:
+        f.write(DUMMY_CHECK)
     bench = json.loads(open(os.path.join(root, "BENCHMARK.json")).read())
     bench["workloads"].append({"name": "dummy_cell", "config": "dummy_config",
                                "traffic": "dummy_mix", "chips": 1,
@@ -85,20 +104,29 @@ def test_new_config_traffic_cell_and_metric_need_no_edit(tmp_path):
         json.dump(bench, f)
     probe = (
         "import json\n"
-        "from mapbench import manifest\n"
+        "from mapbench import check, manifest\n"
         "b = manifest.load('.')\n"
         "c = manifest.cell(b, 'dummy_cell', '.')\n"
         "m = [x['name'] for x in manifest.metrics_of(b, 'dummy_cell', "
         "'per_layer')]\n"
+        "k = manifest.checks(c['cell'], '.')['dummy_check']\n"
+        "run = check.run_of(None, {}, (5, 9), 0, 0, None, None, 1, 'cpu')\n"
         "print(json.dumps([c['config']['points_per_scan'], "
         "c['traffic']['step_m'], c['cell']['window_scans_per_s'], m, "
         "manifest.reader('dummy_metric').read(None), "
-        "manifest.reader('dummy_metric').__file__]))\n")
+        "manifest.reader('dummy_metric').__file__, "
+        "check.judge(k.numbers(k.collect(None, 0.5), run), "
+        "{'dummy_number': c['cell']['limits']['dummy_number']}), "
+        "k.__file__, manifest.check_names(b, '.')]))\n")
     out = subprocess.run([sys.executable, "-c", probe], cwd=root, check=True,
                          capture_output=True, text=True).stdout
-    pts, step, rate, metrics, value, path = json.loads(out)
+    (pts, step, rate, metrics, value, path, judged, check_path,
+     bad) = json.loads(out)
     assert (pts, step, rate, value) == (7, 0.7, 1.0, 42.0)
     assert "dummy_metric" in metrics
-    assert os.path.realpath(path).startswith(os.path.realpath(root))
+    assert judged == [True, {"dummy_number": {"value": 5.5, "limit": 10.0}}]
+    assert bad == []
+    for p in (path, check_path):
+        assert os.path.realpath(p).startswith(os.path.realpath(root))
     after = _digest(root)
     assert {k: v for k, v in after.items() if k in before} == before
